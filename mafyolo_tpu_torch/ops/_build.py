@@ -1,0 +1,85 @@
+"""Build the CUDA sources under csrc/ with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` becomes its own shared library with a plain C
+interface, `build/kernels/<name>-<hash>.so` at the repository root (the hash
+covers the source and the flags, so an edited source rebuilds). Nothing is
+built at import time: `load(name)` builds at first use, on the machine with
+the card. No PyTorch headers are included, which keeps a build to seconds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas=-v"]
+# Per-source extra flags. The NMS keep mask must equal the plain version's
+# bit for bit, so its IoU arithmetic may not be contracted into FMAs.
+EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": []}
+
+_LOADED: dict = {}
+BUILD_LOG: dict = {}   # name -> (seconds, nvcc output) of builds run here
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu (if its hashed library is missing) -> .so path."""
+    src = CSRC / f"{name}.cu"
+    flags = ARCH_FLAGS + COMMON_FLAGS + EXTRA_FLAGS[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    BUILD_LOG[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+    return out
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare every entry point.
+
+    signatures maps function name -> argtypes; each such function returns
+    its cudaError_t as an int. Every library also exports
+    `const char* error_string(int)`."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _LOADED[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")

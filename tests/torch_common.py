@@ -1,0 +1,50 @@
+"""Shared pieces of the tests that hold mafyolo_tpu_torch against mafyolo_tpu.
+
+Inputs are made with numpy from a seed and handed to both packages; f32 on
+the CPU, TF32 off wherever f32 is compared.
+"""
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: decided when the test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def port_specs(name: str, nc: int):
+    from mafyolo_tpu_torch.models.graph import parse_graph
+    from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
+    return parse_graph(MODEL_ZOO[name], nc=nc)[0]
+
+
+def random_folded(name: str, nc: int, seed: int = 0):
+    """Random nonzero folded deploy tree (numpy leaves) for a zoo graph."""
+    from mafyolo_tpu_torch.utils.bridge import random_folded_variables
+    return random_folded_variables(port_specs(name, nc), seed)
+
+
+def port_model(name: str, nc: int, folded, skip_until: int = -1):
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.utils.bridge import folded_to_state_dict
+    m = build_model(name, nc=nc, deploy=True, skip_until=skip_until)
+    m.load_state_dict(folded_to_state_dict(m.specs, folded))
+    return m.eval()
+
+
+def to_jax(tree):
+    import jax.numpy as jnp
+    return {k: to_jax(v) if isinstance(v, dict) else jnp.asarray(v)
+            for k, v in tree.items()}
+
+
+def u8_images(seed: int, shape):
+    return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)

@@ -10,16 +10,34 @@ Phases, in order; any failure exits non-zero without a result line:
                 (N bs4@640, S bs2@640, a 256x64 N batch; f32 and bf16);
   4. nms        the greedy-NMS kernel against its plain version (B=32,
                 M=512 and M=2000), keep sets exactly equal;
-  5. slice      MAF-YOLO-N deploy Evaler.predict in bf16, bs32 uint8 @640,
+  5. dw_grad    the depthwise weight-gradient kernel against its plain
+                version at every (C, H, k) of N's train graph at B=2, plus a
+                dilation-2 case and odd sizes; f32 and bf16;
+  6. slice      MAF-YOLO-N deploy Evaler.predict in bf16, bs32 uint8 @640,
                 for BATCHES batches plus one batch that overflows into the
                 dense NMS path, with every kernel's launch count read around
                 that run; then the card in f32 against the CPU plain path on
                 2 images @640;
-  6. timings    CUDA-event times: e2e img/s and p50 batch latency at bs32@640
-                and each kernel beside its plain version at main-path shapes.
-Weights are random (seeded); the cls_pred layers are rescaled so that an
-image has about 150 (anchor, class) pairs above conf 0.03. Nothing here
-imports JAX. The last line is {"ok": true, "device": {...}}.
+  7. timings    CUDA-event times: e2e img/s and p50 batch latency at bs32@640
+                and each kernel beside its plain version at main-path shapes;
+  8. train      MAF-YOLO-N train steps at bs32@640 in bf16 through the port's
+                engine loop (accumulate 2: accumulate-only and apply steps
+                alternate; ATSS epoch, then TAL epoch), with the dw_grad
+                launch count read around that run;
+  9. train_check  one f32 step of N at bs2@160 on the card against the CPU
+                plain path: loss components, every gradient, BN stats;
+ 10. train_to_serve  the EMA folded into the deploy model, Evaler.predict;
+                the folded model in f32 against the train form in eval mode
+                on the same EMA weights (every head's inner outputs);
+ 11. timing_train  train-step img/s and its stage split; the device's busy
+                time and idle share over two profiled steps; the dw_grad
+                kernel against its plain version at every DW site at B=32
+                (values and determinism), and the summed dk time per step,
+                kernel against plain.
+Weights are random (seeded); the deploy cls_pred layers are rescaled so that
+an image has about 150 (anchor, class) pairs above conf 0.03; the train run
+starts from the model's own initialization. Nothing here imports JAX. The
+last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -29,6 +47,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, IMG, BATCHES, NC = 32, 640, 20, 80
+STEPS_PER_EPOCH = 3665     # COCO train2017 (117266 images) at bs 32
+TRAIN_STEPS = 4            # per epoch: an ATSS epoch, then a TAL epoch
 
 
 def fail(msg):
@@ -58,6 +78,88 @@ def events_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def dw_sites(model, img, device):
+    """[(C, H, W, k, pad, dilation)] of every depthwise conv of a train-form
+    model at img x img, read from one forward (a dw_grad launch each per
+    backward)."""
+    import torch
+    from mafyolo_tpu_torch.models.blocks import DWConv
+    sites, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, DWConv):
+            k = m.weight.shape[-1]
+            hooks.append(m.register_forward_hook(
+                lambda mod, a, o, k=k: sites.append(
+                    (a[0].shape[1], a[0].shape[2], a[0].shape[3], k, mod.pad,
+                     mod.dilation))))
+    with torch.no_grad():
+        model.eval()(torch.zeros(1, img, img, 3, device=device))
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def train_batch(seed, b, img, device, max_boxes=120):
+    """uint8 BGR images [b,img,img,3] and padded targets [b,max_boxes,5]
+    (1-30 boxes per image: cls, cx, cy, w, h normalized; pad rows cls -1),
+    made on the device from a seed."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    imgs = torch.randint(0, 256, (b, img, img, 3), generator=gen, device=device,
+                         dtype=torch.uint8)
+    u = torch.rand((b, max_boxes, 5), generator=gen, device=device)
+    n = torch.randint(1, 31, (b, 1), generator=gen, device=device)
+    real = torch.arange(max_boxes, device=device)[None, :] < n
+    wh = 0.03 + 0.5 * u[..., 3:5]
+    xy = wh / 2 + u[..., 1:3] * (1 - wh)
+    cls = (u[..., 0] * NC).floor().clamp(max=NC - 1)
+    t = torch.cat([cls[..., None], xy, wh], -1)
+    t = torch.where(real[..., None], t, torch.zeros_like(t))
+    t[..., 0] = torch.where(real, t[..., 0], -1.0)
+    return imgs, t
+
+
+def dw_grad_phase(dev):
+    """Phase 5: the dw_grad kernel against its plain version at every DW site
+    of N's train graph at B=2, a dilation-2 k9 case at H=20 and an odd size;
+    f32 and bf16. Returns the largest error."""
+    import torch
+
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    cl = torch.channels_last
+    torch.manual_seed(0)
+    sites = dw_sites(build_model("maf-yolo-n", nc=NC).to(dev).to(memory_format=cl), IMG, dev)
+    cases = sorted(set(sites)) + [(64, 20, 20, 9, 8, 2), (48, 37, 23, 5, 2, 1)]
+    dk_err = 0.0
+    for c, h, w, k, pad, dil in cases:
+        gen = torch.Generator(device=dev).manual_seed(c * 1000 + h * 10 + k)
+        # an offset keeps x nonzero at every border
+        x32 = (torch.randn((2, c, h, w), generator=gen, device=dev) + 0.5) \
+            .contiguous(memory_format=cl)
+        g32 = torch.randn((2, c, h, w), generator=gen, device=dev).contiguous(memory_format=cl)
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dt), g32.to(dt)
+            want = DG.dw_grad_plain(x, g, k, pad, dil)
+            got = DG.dw_grad(x, g, k, pad, dil)
+            again = DG.dw_grad(x, g, k, pad, dil)
+            err = (got - want).abs().max().item()
+            bound = 1e-3 * want.abs().max().item()
+            errs[str(dt).split(".")[1]] = (err, bound)
+            check(err <= bound, f"dw_grad kernel vs plain {dt} C{c} H{h} W{w} k{k} d{dil}: "
+                                f"{err} > {bound}")
+            check(torch.equal(got, again), f"dw_grad not deterministic C{c} H{h} k{k}")
+            dk_err = max(dk_err, err)
+        emit(phase="dw_grad_check", c=c, h=h, w=w, k=k, dilation=dil, batch=2,
+             max_abs_err_f32=errs["float32"][0], bound_f32=errs["float32"][1],
+             max_abs_err_bf16=errs["bfloat16"][0], bound_bf16=errs["bfloat16"][1],
+             tolerance="1e-3 * max|plain| for both; bf16 inputs are the same "
+                       "numbers for both versions, each accumulates in f32")
+    emit(phase="dw_grad_sites", sites=len(sites), distinct=len(set(sites)))
+    return dk_err
 
 
 def main():
@@ -96,15 +198,18 @@ def main():
     emit(phase="device", kind=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- 2. build
-    for name in ("frontend", "greedy_nms"):
-        t0 = time.perf_counter()
-        path = _build.build(name)
+    # ---- 2. build: one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
+    names = ("frontend", "greedy_nms", "dw_grad")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(_build.build, names)))
+    for name in names:
         secs, log = _build.BUILD_LOG.get(name, (time.perf_counter() - t0, ""))
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        emit(phase="build", kernel=name, seconds=secs, lib=os.path.relpath(path, HERE),
-             ptxas=ptxas)
+        emit(phase="build", kernel=name, seconds=secs,
+             lib=os.path.relpath(paths[name], HERE), ptxas=ptxas)
 
     def models(folded, half, device):
         ev = Evaler(half=half, device=device)
@@ -156,7 +261,10 @@ def main():
         check(mismatch == 0, f"greedy_nms kernel keep set differs at M={m}: {mismatch}")
         nms_inputs[m] = (bt, vt)
 
-    # ---- 5. slice
+    # ---- 5. dw_grad kernel vs plain
+    dk_err = dw_grad_phase(dev)
+
+    # ---- 6. slice
     # Random weights with gain 1.5 keep activations image-dependent through
     # the 34 layers. Random heads are not peaky: an anchor whose feature is
     # large lights up many classes, and one anchor with more than two
@@ -251,7 +359,7 @@ def main():
     emit(phase="slice_check", cpu_dets_above_0p1=n_ref, matched=matched, fraction=frac)
     check(n_ref >= 10 and frac >= 0.95, f"card vs CPU: {matched}/{n_ref} detections matched")
 
-    # ---- 6. timings (CUDA events, after warm-up)
+    # ---- 7. timings (CUDA events, after warm-up)
     x = batches[0]
     e2e_ms = events_ms(lambda: ev.predict(x), iters=BATCHES)
     lat = []
@@ -283,20 +391,295 @@ def main():
          frontend_ms=fe_ms, frontend_plain_ms=fe_plain_ms,
          nms_ms=nms_ms, nms_plain_ms=nms_plain_ms)
 
+    del ev, gpu32, cpu32, batches, outs
+    torch.set_grad_enabled(True)
+    train = train_phases(dev)
+    dk_err = max(dk_err, train["dk_err"])
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "frontend", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/frontend.cu",
-         "replaces": "mafyolo_tpu/ops/frontend_pallas.py:466",
+         "replaces": "mafyolo_tpu/ops/frontend_pallas.py:467",
          "launches": launches["frontend"], "max_abs_err": fe_err["maf-yolo-n"],
          "ms": fe_ms, "plain_ms": fe_plain_ms},
         {"name": "greedy_nms", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "mafyolo_tpu/ops/pallas_nms.py:60",
          "launches": launches["greedy_nms"], "max_abs_err": nms_err,
          "ms": nms_ms[512], "plain_ms": nms_plain_ms[512]},
+        {"name": "dw_grad", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/dw_grad.cu",
+         "replaces": "mafyolo_tpu/ops/dw_grad_pallas.py:143 and :47",
+         "launches": train["launches"], "max_abs_err": dk_err,
+         "ms": train["dk_ms"], "plain_ms": train["dk_plain_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
+
+
+def _leaf_errors(got, want, floor=1e-2):
+    """Largest |got - want| of each leaf over max(max|want leaf|, floor * the
+    largest leaf magnitude); got and want map names to tensors."""
+    top = max(w.abs().max().item() for w in want.values())
+    return {k: (got[k].float().cpu() - w.float().cpu()).abs().max().item()
+            / max(w.abs().max().item(), floor * top) for k, w in want.items()}
+
+
+def train_phases(dev):
+    """Phases 8-11: the train path on the card. Returns the dw_grad launches of
+    the train run, the summed dk ms per step, kernel and plain, and the
+    kernel's largest error at B=32."""
+    import numpy as np
+    import torch
+
+    from mafyolo_tpu_torch.core.engine import Trainer, load_config
+    from mafyolo_tpu_torch.core.evaler import Evaler
+    from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
+    from mafyolo_tpu_torch.models import build_model
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.utils.bridge import (random_train_variables,
+                                                state_dict_to_train_variables,
+                                                train_variables_to_state_dict)
+    cl = torch.channels_last
+
+    # ---- 8. train: N bs32@640 bf16 through the engine loop
+    cfg = load_config(os.path.join(HERE, "configs", "maf_yolo_n.py"))
+    torch.manual_seed(0)
+    model = build_model("maf-yolo-n", nc=NC).to(dev).to(memory_format=cl)
+    sites = dw_sites(model, IMG, dev)
+    tr = Trainer(model, cfg, nc=NC, img_size=IMG, batch_size=BATCH, epochs=300,
+                 max_stepnum=STEPS_PER_EPOCH, dtype=torch.bfloat16)
+    batches = [train_batch(200 + i, BATCH, IMG, dev) for i in range(2 * TRAIN_STEPS)]
+    # nonzero conv kernels: weight decay moves each of them on every apply
+    # step (BN params may sit still: the zero-initialized preds stop every
+    # gradient upstream of the heads on the first step, and a zero pred moves
+    # only when its level has positives)
+    names, params = zip(*[(n, p) for n, p in model.named_parameters()
+                          if p.ndim == 4 and bool(p.any())])
+    stats = [b for n, b in model.named_buffers() if n.endswith("running_var")]
+    ema0 = {k: v.clone() for k, v in tr.state.ema.state_dict().items()}
+    record = []
+    snap = {"p": [p.detach().clone() for p in params], "s": [b.clone() for b in stats],
+            "u": tr.state.updates}
+
+    def mark(stage):
+        # compare with the end of the previous step, then take the new end
+        if stage != "optimizer":
+            return
+        still = [n for n, a, p in zip(names, snap["p"], params) if torch.equal(a, p)]
+        record.append({
+            "applied": tr.state.updates != snap["u"],
+            "params_moved": len(params) - len(still), "params_still": still[:4],
+            "stats_moved": sum(not torch.equal(a, b) for a, b in zip(snap["s"], stats))})
+        snap.update(p=[p.detach().clone() for p in params], s=[b.clone() for b in stats],
+                    u=tr.state.updates)
+
+    torch.cuda.synchronize()
+    DG.dw_grad.launches = 0
+    metrics = (tr.train_one_epoch(2, batches[:TRAIN_STEPS], mark=mark)
+               + tr.train_one_epoch(3, batches[TRAIN_STEPS:], mark=mark))
+    torch.cuda.synchronize()
+    launches = DG.dw_grad.launches
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+    ema_moved = sum(not torch.equal(v, ema0[k]) for k, v in tr.state.ema.state_dict().items())
+    emit(phase="train", model="maf-yolo-n", dtype="bf16", batch=BATCH, img=IMG,
+         steps=len(metrics), epochs=[2, 3], use_atss=[True, False],
+         accumulate=tr.plan(0, 2)[0]["accumulate"], dw_sites=len(sites),
+         dw_grad_launches=launches, updates=tr.state.updates,
+         ema_entries_moved=ema_moved, steps_record=record, losses=losses)
+    for r, lo in zip(record, losses):
+        check(all(np.isfinite(v) for v in lo.values()), f"non-finite loss {lo}")
+        check(r["params_moved"] == (len(params) if r["applied"] else 0),
+              f"conv kernels moved {r['params_moved']}/{len(params)} on a step "
+              f"applied={r['applied']}")
+        check(r["stats_moved"] == len(stats), f"BN stats moved {r['stats_moved']}/{len(stats)}")
+    n_apply = sum(r["applied"] for r in record)
+    check(0 < n_apply < len(record), f"{n_apply} apply steps of {len(record)}")
+    check(tr.state.updates == n_apply and ema_moved > 0, "updates or EMA did not move")
+    check(launches == len(sites) * len(record),
+          f"dw_grad launches {launches} != {len(sites)} DW sites x {len(record)} steps")
+
+    # ---- 9. train_check: one f32 step, card (kernel) vs CPU (plain), bs2@160
+    variables = random_train_variables(tr.state.model.specs, seed=3)
+    imgs, targets = train_batch(7, 2, 160, dev)
+    grads, comps, bn = {}, {}, {}
+    for key, where in (("card", dev), ("cpu", "cpu")):
+        m = build_model("maf-yolo-n", nc=NC)
+        m.load_state_dict(train_variables_to_state_dict(variables))
+        m = m.to(where).to(memory_format=cl)
+        st = init_train_state(m, weight_decay=5e-4)
+        before = DG.dw_grad.launches
+        met = make_train_step(num_classes=NC, img_size=160)(
+            st, imgs.to(where), targets.to(where), 0.01, 0.01, 0.01, 0.9, False, False)
+        if key == "card":
+            check(DG.dw_grad.launches - before == len(sites), "train_check: dw_grad not launched")
+        comps[key] = {k: float(v) for k, v in met.items()}
+        grads[key] = {n: p.grad for n, p in m.named_parameters()}
+        bn[key] = {n: b for n, b in m.named_buffers()}
+    g_err = _leaf_errors(grads["card"], grads["cpu"])
+    s_err = _leaf_errors(bn["card"], bn["cpu"])
+    l_err = max(abs(comps["card"][k] - v) / max(abs(v), 1e-6) for k, v in comps["cpu"].items())
+    worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
+    emit(phase="train_check", batch=2, img=160, dtype="f32", loss_cpu=comps["cpu"],
+         loss_card=comps["card"], loss_rel_err=l_err, grad_leaves=len(g_err),
+         grad_max_rel_err=max(g_err.values()), grad_worst=worst,
+         bn_stats_max_rel_err=max(s_err.values()),
+         tolerance="loss components rel 1e-3; each gradient and BN buffer: "
+                   "max|card - cpu| <= 1e-2 * max(max|cpu leaf|, 1e-2 * max over leaves)")
+    check(l_err <= 1e-3, f"train_check loss components differ: {comps}")
+    check(max(g_err.values()) <= 1e-2, f"train_check gradients differ: {worst}")
+    check(max(s_err.values()) <= 1e-2, "train_check BN running stats differ")
+    del grads, bn
+
+    # ---- 10. train_to_serve: fold the EMA, predict on the card
+    ema_vars = state_dict_to_train_variables(tr.state.ema.state_dict())
+    ev = Evaler(half=True, device=dev)
+    ev.init_model("maf-yolo-n", ema_vars, nc=NC, folded=False)
+    FE.frontend_forward.launches = G.greedy_nms.launches = 0
+    out = ev.predict(batches[0][0])
+    torch.cuda.synchronize()
+    serve_launches = {"frontend": FE.frontend_forward.launches, "greedy_nms": G.greedy_nms.launches}
+    # After 4 optimizer steps the EMA's preds are still near their zero
+    # init, so every score sits near the prior (0.01) and few or no boxes
+    # clear conf 0.03. So the fold is checked on raw outputs: the folded
+    # model in f32 (front-end kernel included) against the train form in
+    # eval mode on the same EMA weights, 4 images, at every head's stem
+    # (feat), cls_proj and reg_proj output and its cls and reg.
+    ev32 = Evaler(half=False, device=dev)
+    ev32.init_model("maf-yolo-n", ema_vars, nc=NC, folded=False)
+    ref = build_model("maf-yolo-n", nc=NC)
+    ref.load_state_dict(train_variables_to_state_dict(ema_vars))
+    ref = ref.to(dev).to(memory_format=cl).eval()
+
+    def inner(model, run):
+        got, hooks = {}, []
+        for name, m in model.named_modules():
+            if name.endswith(("cls_proj", "reg_proj")):
+                hooks.append(m.register_forward_hook(
+                    lambda mod, a, o, name=name: got.__setitem__(name, o)))
+        with torch.no_grad():
+            for lvl, outs in enumerate(run()):
+                got.update({f"level{lvl}.{t}": o for t, o in zip(("feat", "cls", "reg"), outs)})
+        for h in hooks:
+            h.remove()
+        return got
+
+    four = batches[0][0][:4]
+    got = inner(ev32.model, lambda: ev32.forward(four))
+    want = inner(ref, lambda: ref(four.flip(-1).float() / 255.0))
+    check(got.keys() == want.keys() and len(want) == 15, "train_to_serve: outputs differ in kind")
+    fold_err = {k: (got[k].float() - w).abs().max().item() / w.abs().max().item()
+                for k, w in want.items()}
+    emit(phase="train_to_serve", launches=serve_launches,
+         dets_per_image_mean=float(out["valid"].sum(1).float().mean().item()),
+         max_score=max(o[1].float().max().item() for o in ev.forward(four)),
+         fold_outputs=len(fold_err), fold_max_rel_err=max(fold_err.values()),
+         fold_worst=sorted(fold_err.items(), key=lambda kv: -kv[1])[:3],
+         tolerance="folded f32 vs train form eval f32: max|err| <= 1e-3 * max|train form| "
+                   "for each output")
+    check(serve_launches["frontend"] == 1 and serve_launches["greedy_nms"] >= 1,
+          "train_to_serve: front-end or NMS kernel not launched")
+    check(out["boxes"].shape == (BATCH, 300, 4) and bool(torch.isfinite(out["boxes"]).all())
+          and bool(torch.isfinite(out["scores"]).all()), "train_to_serve: bad output")
+    check(max(fold_err.values()) <= 1e-3, f"train_to_serve: folded model differs from the "
+                                          f"train form: {fold_err}")
+    del ev, ev32, ref, got, want
+
+    # ---- 11. timing_train: CUDA events per stage over steady steps
+    stages = ("forward", "loss", "backward", "optimizer")
+    timed = []
+
+    def mark_t(stage):
+        ev_ = torch.cuda.Event(enable_timing=True)
+        ev_.record()
+        timed[-1][stage] = ev_
+
+    tr.train_one_epoch(4, batches[:2])                          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    for i, (im, tg) in enumerate(batches[2:8]):
+        sched, do_apply = tr.plan(2 + i, 4)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        timed.append({"start": start, "applied": do_apply})
+        tr.train_step(tr.state, im, tg, sched["lr_bnw"], sched["lr_weight"],
+                      sched["lr_bias"], sched["momentum"], do_apply, False, mark=mark_t)
+    torch.cuda.synchronize()
+    per = {s_: [] for s_ in stages}
+    step_ms = []
+    for t in timed:
+        prev = t["start"]
+        for s_ in stages:
+            per[s_].append(prev.elapsed_time(t[s_]))
+            prev = t[s_]
+        step_ms.append((t["start"].elapsed_time(t["optimizer"]), t["applied"]))
+    mean_ms = float(np.mean([m for m, _ in step_ms]))
+
+    # the device's busy time over two more steps (one apply, one
+    # accumulate-only) under the profiler: the union of its kernel, copy and
+    # set spans, against those steps' span by CUDA events
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        p0, p1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        p0.record()
+        for i, (im, tg) in enumerate(batches[:2]):
+            sched, do_apply = tr.plan(8 + i, 4)
+            tr.train_step(tr.state, im, tg, sched["lr_bnw"], sched["lr_weight"],
+                          sched["lr_bias"], sched["momentum"], do_apply, False)
+        p1.record()
+        torch.cuda.synchronize()
+    prof_ms = p0.elapsed_time(p1)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 2e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    emit(phase="profile_train", steps=2, step_ms_profiled=prof_ms / 2,
+         device_busy_ms_per_step=busy_us / 2e3, idle_share=1 - busy_us / 1e3 / prof_ms,
+         device_ops_per_step=len(spans) / 2,
+         top_ms_per_step=[[n[:100], t] for n, t in top])
+    check(busy_us > 0, "profile_train: the profiler saw no device activity")
+
+    # the dw_grad kernel against its plain version at every site at B=32
+    # (up to 819 200 terms per tap, several tiles per block, the path's
+    # n_split), then the summed dk time per step, kernel against plain
+    dk_ms = dk_plain_ms = b32_err = b32_rel = 0.0
+    for c, h, w, k, pad, dil in sites:
+        gen = torch.Generator(device=dev).manual_seed(c + h + k)
+        # an offset keeps x nonzero at every border
+        x = (torch.randn((BATCH, c, h, w), generator=gen, device=dev) + 0.5) \
+            .to(torch.bfloat16).contiguous(memory_format=cl)
+        g = torch.randn((BATCH, c, h, w), generator=gen, device=dev).to(torch.bfloat16) \
+            .contiguous(memory_format=cl)
+        before = DG.dw_grad.launches
+        got = DG.dw_grad(x, g, k, pad, dil)
+        want = DG.dw_grad_plain(x, g, k, pad, dil)
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        check(err <= 1e-3 * scale, f"dw_grad kernel vs plain at B={BATCH} C{c} H{h} k{k}: "
+                                   f"{err} > 1e-3 * {scale}")
+        check(torch.equal(got, DG.dw_grad(x, g, k, pad, dil)),
+              f"dw_grad not deterministic at B={BATCH} C{c} H{h} k{k}")
+        b32_err, b32_rel = max(b32_err, err), max(b32_rel, err / scale)
+        dk_ms += events_ms(lambda: DG.dw_grad(x, g, k, pad, dil), iters=5)
+        dk_plain_ms += events_ms(lambda: DG.dw_grad_plain(x, g, k, pad, dil), iters=2, warmup=1)
+        DG.dw_grad.launches = before       # check and timing launches are not the path's
+    emit(phase="dw_grad_check_b32", sites=len(sites), batch=BATCH, dtype="bf16",
+         max_abs_err=b32_err, max_rel_err=b32_rel,
+         tolerance="1e-3 * max|plain| at each site; bit-identical on a second launch")
+    emit(phase="timing_train", model="maf-yolo-n", dtype="bf16", batch=BATCH, img=IMG,
+         steps=len(step_ms), img_per_s=BATCH / (mean_ms / 1e3), step_ms_mean=mean_ms,
+         apply_step_ms=float(np.mean([m for m, a in step_ms if a])),
+         accumulate_step_ms=float(np.mean([m for m, a in step_ms if not a])),
+         **{f"{s_}_ms": float(np.mean(v)) for s_, v in per.items()},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         dk_sites=len(sites), dk_kernel_ms_per_step=dk_ms, dk_plain_ms_per_step=dk_plain_ms)
+    return {"launches": launches, "dk_ms": dk_ms, "dk_plain_ms": dk_plain_ms,
+            "dk_err": b32_err}
 
 
 if __name__ == "__main__":

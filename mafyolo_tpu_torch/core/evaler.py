@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from mafyolo_tpu_torch.models import build_model
+from mafyolo_tpu_torch.models.reparam import fold_variables
 from mafyolo_tpu_torch.ops.frontend import (frontend_build, frontend_forward,
                                             frontend_skip_until)
 from mafyolo_tpu_torch.ops.nms import fused_decode_nms
@@ -30,16 +31,17 @@ class Evaler:
     # ---------- model ----------
 
     def init_model(self, graph, variables, nc: int, folded: bool = False):
-        """Build the deploy model from folded deploy variables (the JAX tree
-        layout, numpy leaves) and pack the front-end kernel's weights."""
-        if not folded:
-            raise NotImplementedError(
-                "train-form weights need the folds, which are not ported yet "
-                "(ROADMAP Queue 1 item 5); pass folded deploy variables")
+        """Build the deploy model and pack the front-end kernel's weights.
+        variables: the JAX tree layout, numpy leaves; folded deploy
+        variables, or with folded=False train-form {'params', 'batch_stats'}
+        (e.g. the EMA, utils/bridge.py:state_dict_to_train_variables), which
+        models/reparam.py folds first."""
         self.dtype = torch.bfloat16 if self.half else torch.float32
         model = build_model(graph, nc=nc, deploy=True)
+        if not folded:
+            variables = fold_variables(model.specs, variables)
         self.fe_skip = model.net.skip_until = frontend_skip_until(model.specs, model.save)
-        model.load_state_dict(folded_to_state_dict(model.specs, variables))
+        model.load_state_dict(folded_to_state_dict(variables))
         model = model.to(self.device).eval()
         self.fe_weights = (frontend_build(model.net) if self.fe_skip >= 0
                            else None)

@@ -36,6 +36,26 @@ def anchor_points_for(hw_list, strides, grid_cell_offset: float = 0.5,
     return torch.cat(points, 0), torch.cat(stride_col, 0)
 
 
+def generate_anchors_train(hw_list, strides, grid_cell_size: float = 5.0,
+                           grid_cell_offset: float = 0.5, device=None):
+    """Train-mode anchors (detect.py:47-66) -> (anchors [A,4] image-scale
+    cell boxes, anchor_points [A,2] image-scale centers, per-level counts,
+    stride_tensor [A,1])."""
+    anchors, points, counts, stride_col = [], [], [], []
+    for (h, w), s in zip(hw_list, strides):
+        half = grid_cell_size * s * 0.5
+        sx = (torch.arange(w, dtype=torch.float32, device=device) + grid_cell_offset) * s
+        sy = (torch.arange(h, dtype=torch.float32, device=device) + grid_cell_offset) * s
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        anchors.append(torch.stack([gx - half, gy - half, gx + half, gy + half],
+                                   -1).reshape(-1, 4))
+        points.append(torch.stack([gx, gy], -1).reshape(-1, 2))
+        counts.append(h * w)
+        stride_col.append(torch.full((h * w, 1), float(s), device=device))
+    return (torch.cat(anchors, 0), torch.cat(points, 0), counts,
+            torch.cat(stride_col, 0))
+
+
 def dist2bbox(distance, anchor_points, box_format: str = "xyxy"):
     """ltrb distances -> boxes (yolov6/utils/general.py:29-40)."""
     lt, rb = distance.chunk(2, -1)
@@ -44,6 +64,13 @@ def dist2bbox(distance, anchor_points, box_format: str = "xyxy"):
     if box_format == "xyxy":
         return torch.cat([x1y1, x2y2], -1)
     return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], -1)
+
+
+def bbox2dist(anchor_points, bbox, reg_max: int):
+    """xyxy boxes -> clipped ltrb distances (detect.py:81-86)."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points],
+                     -1).clamp(0, reg_max - 0.01)
 
 
 def dfl_decode(reg_distri, reg_max: int):

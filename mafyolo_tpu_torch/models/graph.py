@@ -1,4 +1,4 @@
-"""Graph-spec parser and the save-list graph executor (deploy form).
+"""Graph-spec parser and the save-list graph executor (train and deploy forms).
 
 `LayerSpec`, `make_divisible` and `parse_graph` are a copy of
 mafyolo_tpu/models/graph.py:28-159, cut to the row kinds the MAF-YOLO graphs
@@ -120,15 +120,17 @@ _BLOCK_CTORS = {
 
 
 class GraphNet(nn.Module):
-    """Executes a parsed deploy graph on NHWC input; returns, per head level,
-    (feat, cls, reg) in NHWC.
+    """Executes a parsed graph on NHWC input; returns, per head level,
+    (feat, cls, reg) in NHWC. `deploy` picks the blocks' folded or train form
+    (graph.py:223-306 with remat off, the JAX default).
 
     skip_until: the caller ran layers 0..skip_until itself (the fused
     front-end kernel, ops/frontend.py) and passes layer skip_until's output.
     The skipped layers keep their parameters, so one state_dict serves both.
     """
 
-    def __init__(self, specs, save, out_frm, skip_until: int = -1):
+    def __init__(self, specs, save, out_frm, deploy: bool = False,
+                 skip_until: int = -1):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
         self.skip_until = skip_until
@@ -140,7 +142,7 @@ class GraphNet(nn.Module):
             if "cin" not in kw:   # ConvWrapper rows infer cin from their source
                 src = spec.frm[0]
                 kw["cin"] = specs[src if src >= 0 else spec.idx + src].cout
-            self.add_module(f"layer{spec.idx}", ctor(**kw))
+            self.add_module(f"layer{spec.idx}", ctor(deploy=deploy, **kw))
 
     def forward(self, x):
         skip_until = self.skip_until
@@ -168,14 +170,16 @@ class GraphNet(nn.Module):
 
 
 class MAFYolo(nn.Module):
-    """Full deploy detector: NHWC image -> per-level (feat, cls, reg) NHWC."""
+    """Full detector: NHWC image -> per-level (feat, cls, reg) NHWC."""
 
     def __init__(self, specs, save, out_frm, nc: int = 80, reg_max: int = 16,
-                 strides: Tuple[int, ...] = (8, 16, 32), skip_until: int = -1):
+                 strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
+                 skip_until: int = -1):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
         self.nc, self.reg_max, self.strides = nc, reg_max, strides
-        self.net = GraphNet(specs, save, out_frm, skip_until=skip_until)
+        self.net = GraphNet(specs, save, out_frm, deploy=deploy,
+                            skip_until=skip_until)
 
     def forward(self, x):
         return self.net(x)
@@ -184,12 +188,10 @@ class MAFYolo(nn.Module):
 def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: int = 16,
                 strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
                 skip_until: int = -1) -> MAFYolo:
-    """Build a deploy MAFYolo from a zoo name or a graph dict."""
-    if not deploy:
-        raise NotImplementedError(
-            "train-form blocks are not ported yet (ROADMAP Queue 1 item 5)")
+    """Build a MAFYolo (train form, or deploy form with deploy=True) from a
+    zoo name or a graph dict."""
     if isinstance(graph, str):
         graph = MODEL_ZOO[graph.lower()]
     specs, save, out_frm = parse_graph(graph, nc=nc)
     return MAFYolo(specs, save, out_frm, nc=nc, reg_max=reg_max,
-                   strides=strides, skip_until=skip_until)
+                   strides=strides, deploy=deploy, skip_until=skip_until)

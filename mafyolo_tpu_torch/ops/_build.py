@@ -24,7 +24,7 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas=-v"]
 # Per-source extra flags. The NMS keep mask must equal the plain version's
 # bit for bit, so its IoU arithmetic may not be contracted into FMAs.
-EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": []}
+EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": [], "dw_grad": []}
 
 _LOADED: dict = {}
 BUILD_LOG: dict = {}   # name -> (seconds, nvcc output) of builds run here

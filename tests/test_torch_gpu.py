@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from mafyolo_tpu_torch.ops import dw_grad as DG
 from mafyolo_tpu_torch.ops import frontend as F
 from mafyolo_tpu_torch.ops import greedy_nms as G
 from torch_common import cuda_device, port_model, random_folded, u8_images  # noqa: F401
@@ -57,3 +58,43 @@ def test_wrappers_reject_bad_input(cuda_device):
     with pytest.raises(ValueError):
         G.greedy_nms(torch.zeros(1, 8, 4, dtype=torch.float64, device=cuda_device),
                      torch.ones(1, 8, dtype=torch.bool, device=cuda_device), 0.5)
+
+
+def _dw_inputs(device, dtype, b, c, h, w, k, dil):
+    """x nonzero at every border (offset 0.5), g; channels-last."""
+    rng = np.random.default_rng(k * 100 + h)
+    x = torch.from_numpy(rng.normal(0.5, 1, (b, c, h, w)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(0, 1, (b, c, h, w)).astype(np.float32))
+    cl = torch.channels_last
+    return (x.to(device, dtype).contiguous(memory_format=cl),
+            g.to(device, dtype).contiguous(memory_format=cl), (k - 1) * dil // 2)
+
+
+@pytest.mark.parametrize("c,h,w,k,dil", [(72, 40, 40, 3, 1), (144, 20, 20, 5, 1),
+                                         (40, 20, 36, 9, 1), (33, 17, 23, 7, 1),
+                                         (64, 24, 24, 1, 1), (16, 32, 32, 9, 2),
+                                         (8, 16, 16, 3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_grad_kernel_matches_plain(cuda_device, c, h, w, k, dil, dtype):
+    """f32 at 1e-3 of the largest |dk| (both sum in f32, in another order);
+    bf16 inputs are the same numbers for both, so the same bound holds."""
+    x, g, pad = _dw_inputs(cuda_device, dtype, 2, c, h, w, k, dil)
+    before = DG.dw_grad.launches
+    got = DG.dw_grad(x, g, k, pad, dil)
+    want = DG.dw_grad_plain(x, g, k, pad, dil)
+    assert DG.dw_grad.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (c, 1, k, k)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * want.abs().max().item())
+    assert torch.equal(got, DG.dw_grad(x, g, k, pad, dil))     # deterministic
+
+
+def test_dw_grad_rejects_bad_input(cuda_device):
+    x, g, pad = _dw_inputs(cuda_device, torch.float32, 2, 8, 16, 16, 3, 1)
+    with pytest.raises(ValueError, match="channels-last"):
+        DG.dw_grad(x.contiguous(), g.contiguous(), 3, pad)
+    with pytest.raises(ValueError):
+        DG.dw_grad(x.double(), g.double(), 3, pad)
+    with pytest.raises(ValueError):
+        DG.dw_grad(x, g, 11, 5)
+    with pytest.raises(RuntimeError, match="dw_grad kernel"):   # staging over the smem limit
+        DG.dw_grad(x, g, 9, 80, 20)

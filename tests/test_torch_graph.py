@@ -54,7 +54,7 @@ def test_bridge_covers_every_parameter(name):
     matching; random_folded_variables builds exactly that tree."""
     specs, folded = _jax_folded_tree(name, nc=7)
     model = build_model(name, nc=7, deploy=True)
-    sd = folded_to_state_dict(specs, folded)
+    sd = folded_to_state_dict(folded)
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert {k: tuple(v.shape) for k, v in sd.items()} == want
     model.load_state_dict(sd, strict=True)
@@ -78,7 +78,7 @@ def test_random_folded_variables_nonzero_and_seeded():
 def test_bridge_transposes_hwio_to_oihw():
     specs = port_specs("maf-yolo-n", 7)
     folded = random_folded_variables(specs, seed=1)
-    sd = folded_to_state_dict(specs, folded)
+    sd = folded_to_state_dict(folded)
     k = folded["params"]["net"]["layer2"]["m0"]["dw"]["fused"]["conv"]["kernel"]
     w = sd["net.layer2.m0.dw.fused.conv.weight"].numpy()
     assert k.shape == (3, 3, 1, 72) and w.shape == (72, 1, 3, 3)

@@ -49,7 +49,8 @@ def test_predict_matches_jax_evaler():
 
 def test_train_form_raises_and_scale_coords():
     ev = Evaler(half=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # train-form weights are folded first; a tree without them cannot be
+    with pytest.raises(KeyError, match="params"):
         ev.init_model("maf-yolo-n", {}, nc=7, folded=False)
     boxes = np.array([[10.0, 20.0, 630.0, 600.0]])
     # 640x640 letterbox of a 320x480 (h, w) image: gain 4/3, pad (0, 106.67)

@@ -36,7 +36,7 @@ def port_model(name: str, nc: int, folded, skip_until: int = -1):
     from mafyolo_tpu_torch.models import build_model
     from mafyolo_tpu_torch.utils.bridge import folded_to_state_dict
     m = build_model(name, nc=nc, deploy=True, skip_until=skip_until)
-    m.load_state_dict(folded_to_state_dict(m.specs, folded))
+    m.load_state_dict(folded_to_state_dict(folded))
     return m.eval()
 
 
@@ -44,6 +44,15 @@ def to_jax(tree):
     import jax.numpy as jnp
     return {k: to_jax(v) if isinstance(v, dict) else jnp.asarray(v)
             for k, v in tree.items()}
+
+
+def tree_leaves(tree, prefix=()):
+    """(path 'a/b/c', numpy leaf) of a nested dict of arrays, sorted by path."""
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from tree_leaves(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), np.asarray(v)
 
 
 def u8_images(seed: int, shape):

@@ -1,8 +1,9 @@
 """Deploy predict path (counterpart of mafyolo_tpu/core/evaler.py:81-178).
 
 uint8 BGR NHWC images -> fused front-end (layers 0-2, ops/frontend.py) ->
-deploy layers 3-33 -> fused decode + greedy NMS (ops/nms.py). The loader,
-the COCO/PR metrics and the eval CLIs come with the next slice.
+deploy layers 3-33 -> fused decode + greedy NMS (ops/nms.py); a batch whose
+H or W is not a multiple of 4 runs the deploy model's own layers 0-2. The
+loader, the COCO/PR metrics and the eval CLIs come with a later slice.
 """
 from __future__ import annotations
 
@@ -55,10 +56,15 @@ class Evaler:
     @torch.no_grad()
     def forward(self, imgs_u8):
         """uint8 BGR NHWC [B,H,W,3] on the evaler's device -> per-level
-        (feat, cls, reg) NHWC head outputs in the model dtype."""
-        if self.fe_skip >= 0:
+        (feat, cls, reg) NHWC head outputs in the model dtype.
+
+        Routed by shape, as the JAX predict (evaler.py:117-128): the
+        front-end kernel when H and W are multiples of 4, else the full
+        deploy model, its own layers 0-2 included."""
+        h, w = imgs_u8.shape[1:3]
+        if self.fe_skip >= 0 and h % 4 == 0 and w % 4 == 0:
             return self.model(frontend_forward(imgs_u8, self.fe_weights, self.dtype))
-        return self.model(imgs_u8.flip(-1).to(self.dtype) / 255.0)
+        return self.model(imgs_u8.flip(-1).to(self.dtype) / 255.0, skip_until=-1)
 
     @torch.no_grad()
     def predict(self, imgs_u8):

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -126,14 +126,17 @@ class GraphNet(nn.Module):
 
     skip_until: the caller ran layers 0..skip_until itself (the fused
     front-end kernel, ops/frontend.py) and passes layer skip_until's output.
-    The skipped layers keep their parameters, so one state_dict serves both.
+    skip_stem: the caller ran layer 0 itself (the stem kernel, ops/stem.py),
+    i.e. skip_until is at least 0 (graph.py:246 of the JAX package).
+    The skipped layers keep their parameters, so one state_dict serves both,
+    and `forward(x, skip_until=...)` overrides the default for one call.
     """
 
     def __init__(self, specs, save, out_frm, deploy: bool = False,
-                 skip_until: int = -1):
+                 skip_until: int = -1, skip_stem: bool = False):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
-        self.skip_until = skip_until
+        self.skip_until = max(skip_until, 0 if skip_stem else -1)
         for spec in specs:
             ctor = _BLOCK_CTORS.get(spec.kind)
             if ctor is None:
@@ -144,8 +147,9 @@ class GraphNet(nn.Module):
                 kw["cin"] = specs[src if src >= 0 else spec.idx + src].cout
             self.add_module(f"layer{spec.idx}", ctor(deploy=deploy, **kw))
 
-    def forward(self, x):
-        skip_until = self.skip_until
+    def forward(self, x, skip_until: Optional[int] = None):
+        if skip_until is None:
+            skip_until = self.skip_until
         x = x.permute(0, 3, 1, 2)   # NHWC -> NCHW view, channels_last strides
         y: Dict[int, Any] = {}
         for spec in self.specs:
@@ -174,24 +178,25 @@ class MAFYolo(nn.Module):
 
     def __init__(self, specs, save, out_frm, nc: int = 80, reg_max: int = 16,
                  strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
-                 skip_until: int = -1):
+                 skip_until: int = -1, skip_stem: bool = False):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
         self.nc, self.reg_max, self.strides = nc, reg_max, strides
         self.net = GraphNet(specs, save, out_frm, deploy=deploy,
-                            skip_until=skip_until)
+                            skip_until=skip_until, skip_stem=skip_stem)
 
-    def forward(self, x):
-        return self.net(x)
+    def forward(self, x, skip_until: Optional[int] = None):
+        return self.net(x, skip_until)
 
 
 def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: int = 16,
                 strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
-                skip_until: int = -1) -> MAFYolo:
+                skip_until: int = -1, skip_stem: bool = False) -> MAFYolo:
     """Build a MAFYolo (train form, or deploy form with deploy=True) from a
     zoo name or a graph dict."""
     if isinstance(graph, str):
         graph = MODEL_ZOO[graph.lower()]
     specs, save, out_frm = parse_graph(graph, nc=nc)
     return MAFYolo(specs, save, out_frm, nc=nc, reg_max=reg_max,
-                   strides=strides, deploy=deploy, skip_until=skip_until)
+                   strides=strides, deploy=deploy, skip_until=skip_until,
+                   skip_stem=skip_stem)

@@ -23,8 +23,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas=-v"]
 # Per-source extra flags. The NMS keep mask must equal the plain version's
-# bit for bit, so its IoU arithmetic may not be contracted into FMAs.
-EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": [], "dw_grad": []}
+# bit for bit, so its IoU arithmetic may not be contracted into FMAs; the
+# FMA probe wants contraction, which is nvcc's default.
+EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": [], "dw_grad": [],
+               "stem": [], "neck80": [], "fma_probe": []}
 
 _LOADED: dict = {}
 BUILD_LOG: dict = {}   # name -> (seconds, nvcc output) of builds run here

@@ -9,9 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch import nn
+
 from mafyolo_tpu_torch.ops import dw_grad as DG
 from mafyolo_tpu_torch.ops import frontend as F
 from mafyolo_tpu_torch.ops import greedy_nms as G
+from mafyolo_tpu_torch.ops import neck as N
+from mafyolo_tpu_torch.ops import stem as S
+from mafyolo_tpu_torch.tools import profile_fma as P
 from torch_common import cuda_device, port_model, random_folded, u8_images  # noqa: F401
 
 pytestmark = pytest.mark.gpu
@@ -98,3 +103,93 @@ def test_dw_grad_rejects_bad_input(cuda_device):
         DG.dw_grad(x, g, 11, 5)
     with pytest.raises(RuntimeError, match="dw_grad kernel"):   # staging over the smem limit
         DG.dw_grad(x, g, 9, 80, 20)
+
+
+def _stem_weights(name, device):
+    return S.stem_build(port_model(name, 7, random_folded(name, 7, seed=4)).to(device).net)
+
+
+@pytest.mark.parametrize("name", ["maf-yolo-n", "maf-yolo-s", "maf-yolo-m"])
+@pytest.mark.parametrize("hw", [(64, 96), (66, 130)])
+def test_stem_kernel_matches_plain(cuda_device, name, hw):
+    """f32 at 1e-3 (summation order); bf16 output at the JAX kernel tests'
+    tolerance. 66x130 gives H/2 = 33 and W/2 = 65: odd row and column tails."""
+    sw = _stem_weights(name, cuda_device)
+    imgs = torch.from_numpy(u8_images(hw[1], (2, *hw, 3))).to(cuda_device)
+    before = S.stem_conv_s2.launches
+    want = S.stem_plain(imgs, sw)
+    got = S.stem_conv_s2(imgs, sw)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    got16 = S.stem_conv_s2(imgs, sw, torch.bfloat16).float()
+    torch.testing.assert_close(got16, want, atol=0.05, rtol=0.05)
+    assert (got16 - want).abs().mean() < 0.01
+    assert S.stem_conv_s2.launches == before + 2
+
+
+def _neck(name, h, device):
+    """Packed weights with every conv bias of layers 20 and 22 in U(0.2, 1),
+    and three NHWC sources."""
+    model = port_model(name, 7, random_folded(name, 7, seed=h)).to(device)
+    gen = torch.Generator(device=device).manual_seed(h)
+    for layer in (model.net.layer20, model.net.layer22):
+        for m in layer.modules():
+            if isinstance(m, nn.Conv2d):
+                m.bias.data = torch.rand(m.bias.shape, generator=gen, device=device) * 0.8 + 0.2
+    cfg = N.neck80_cfg(model.specs, h)
+    xs = [torch.randn((2, h, h, c), generator=gen, device=device) * 0.5 for c in cfg.cins]
+    return N.neck80_build(model.net, cfg), xs
+
+
+@pytest.mark.parametrize("name", ["maf-yolo-n", "maf-yolo-s", "maf-yolo-m"])
+@pytest.mark.parametrize("h", [16, 20, 80])
+def test_neck_kernel_matches_plain(cuda_device, name, h):
+    """f32 at 1e-3; bf16 (inputs, intermediates and outputs in bf16) at the
+    JAX kernel tests' tolerance against the f32 plain version."""
+    nw, xs = _neck(name, h, cuda_device)
+    before = N.neck80_forward.launches
+    want = N.neck80_plain(*xs, nw)
+    got = N.neck80_forward(*xs, nw)
+    got16 = N.neck80_forward(*(x.bfloat16() for x in xs), nw, torch.bfloat16)
+    assert N.neck80_forward.launches == before + 2
+    for g, g16, w in zip(got, got16, want):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(g16.float(), w, atol=0.05, rtol=0.05)
+        assert (g16.float() - w).abs().mean() < 0.01
+
+
+def test_fma_kernel_matches_plain(cuda_device):
+    """One bf16 rounding apart at most: the kernel contracts each step into
+    an FMA, the plain chain rounds the product and the sum."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((1000, 37), generator=gen, device=cuda_device).bfloat16()
+    w = torch.randn(P.TAPS, generator=gen, device=cuda_device)
+    before = P.fma_chain.launches
+    got = P.fma_chain(x, w).float()
+    want = P.fma_plain(x, w).float()
+    assert P.fma_chain.launches == before + 1
+    scale = (x.float().abs().max() * w.abs().sum()).item()
+    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=1e-5 * scale)
+
+
+def test_new_wrappers_reject_bad_input(cuda_device):
+    """Odd H, f64, and widths the kernels do not take raise."""
+    sw = _stem_weights("maf-yolo-n", cuda_device)
+    u8 = torch.zeros(1, 64, 64, 3, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="even"):
+        S.stem_conv_s2(u8[:, :63], sw)
+    with pytest.raises(ValueError):
+        S.stem_conv_s2(u8, sw, torch.float64)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        S.stem_conv_s2(u8, S.StemWeights(sw.flat[:28 * 20].contiguous()))
+    nw, xs = _neck("maf-yolo-n", 16, cuda_device)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        N.neck80_forward(*(x.double() for x in xs), nw)
+    with pytest.raises(ValueError, match="want sources"):
+        N.neck80_forward(xs[0][..., :-8], *xs[1:], nw)
+    with pytest.raises(ValueError, match="want sources"):
+        N.neck80_forward(*(x[:, :15] for x in xs), nw)
+    with pytest.raises(ValueError):
+        P.fma_chain(xs[0], torch.ones(P.TAPS, device=cuda_device))
+    with pytest.raises(ValueError, match="16-byte"):
+        P.fma_chain(torch.zeros(64, dtype=torch.bfloat16, device=cuda_device)[1:],
+                    torch.ones(P.TAPS, device=cuda_device))

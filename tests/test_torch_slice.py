@@ -1,38 +1,37 @@
-"""The slice end to end: port Evaler.predict (uint8 -> front-end -> deploy
-model -> fused decode + NMS) against the JAX Evaler on the same folded
-weights and uint8 batch, MAF-YOLO-N at 128 px, f32 on the CPU."""
+"""The slices end to end against the JAX Evaler on the same folded weights
+and uint8 batch, f32 on the CPU: port Evaler.predict (uint8 -> front-end ->
+deploy model -> fused decode + NMS), MAF-YOLO-N at 128 px and at 126x94 (the
+route without the front-end kernel); and MAF-YOLO-S through the stem route
+(uint8 -> stem -> skip_stem deploy model -> fused decode + NMS) at 128 px."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mafyolo_tpu.core.evaler import Evaler as JaxEvaler
+from mafyolo_tpu_torch.core import evaler as evaler_mod
 from mafyolo_tpu_torch.core.evaler import Evaler
+from mafyolo_tpu_torch.models import build_model
+from mafyolo_tpu_torch.ops.nms import fused_decode_nms
+from mafyolo_tpu_torch.ops.stem import stem_apply, stem_build
+from mafyolo_tpu_torch.utils.bridge import folded_to_state_dict
 from torch_common import random_folded, to_jax, u8_images
 
 
-def _folded_with_detections(seed):
+def _folded_with_detections(seed, name="maf-yolo-n"):
     """Random weights, cls_pred biases shifted so that each image has a few
     hundred (anchor, class) pairs above conf 0.03 at 128 px (fast path)."""
-    folded = random_folded("maf-yolo-n", 7, seed=seed)
+    folded = random_folded(name, 7, seed=seed)
     net = folded["params"]["net"]
     for i in (31, 32, 33):
         net[f"layer{i}"]["cls_pred"]["bias"] = net[f"layer{i}"]["cls_pred"]["bias"] - 3.3
     return folded
 
 
-def test_predict_matches_jax_evaler():
-    folded = _folded_with_detections(0)
-    imgs = u8_images(9, (2, 128, 128, 3))
-    ev = Evaler(half=False)
-    ev.init_model("maf-yolo-n", folded, nc=7, folded=True)
-    assert ev.fe_skip == 2
-    got = {k: v.numpy() for k, v in ev.predict(imgs).items()}
-
-    jev = JaxEvaler({}, half=False)
-    jev.init_model("maf-yolo-n", to_jax(folded), 7, folded=True)
-    want = jax.tree.map(np.asarray, jev._predict(jnp.asarray(imgs)))
-
+def _assert_matches(got, want):
+    """Every JAX detection has a port detection of the same class, score
+    within 1e-3 and box within 1e-2 px; the counts per image are equal."""
     n = want["valid"].sum(1)
     np.testing.assert_array_equal(got["valid"].sum(1), n)
     assert n.min() >= 5
@@ -45,6 +44,57 @@ def test_predict_matches_jax_evaler():
                                   & (np.abs(got["scores"][i, :k] - score) <= 1e-3))
             err = np.abs(got["boxes"][i, cand] - box).max(-1) if len(cand) else []
             assert len(cand) and np.min(err) <= 1e-2, (i, box, score, cls)
+
+
+def _jax_predict(name, folded, imgs):
+    jev = JaxEvaler({}, half=False)
+    jev.init_model(name, to_jax(folded), 7, folded=True)
+    return jax.tree.map(np.asarray, jev._predict(jnp.asarray(imgs)))
+
+
+def _both_predict(folded, imgs):
+    ev = Evaler(half=False)
+    ev.init_model("maf-yolo-n", folded, nc=7, folded=True)
+    assert ev.fe_skip == 2
+    got = {k: v.numpy() for k, v in ev.predict(imgs).items()}
+    return ev, got, _jax_predict("maf-yolo-n", folded, imgs)
+
+
+def test_predict_matches_jax_evaler():
+    _, got, want = _both_predict(_folded_with_detections(0), u8_images(9, (2, 128, 128, 3)))
+    _assert_matches(got, want)
+
+
+def test_predict_routes_by_shape(monkeypatch):
+    """126x94 is no multiple of 4, so the batch runs the model's own layers
+    0-2, as in the JAX predict; the graph takes it (63/47 -> 32/24 -> 16/12
+    -> 8/6 -> 4/3, every MPRep input even). With the front-end kernel
+    raising, as it does on the card for such a shape, the batch still
+    predicts, and a 128x128 batch reaches the kernel."""
+    ev, got, want = _both_predict(_folded_with_detections(1), u8_images(4, (2, 126, 94, 3)))
+    _assert_matches(got, want)
+
+    def refuse(imgs, *a, **k):
+        raise ValueError("front-end kernel called")
+
+    monkeypatch.setattr(evaler_mod, "frontend_forward", refuse)
+    again = ev.predict(u8_images(4, (2, 126, 94, 3)))
+    np.testing.assert_array_equal(again["valid"].numpy(), got["valid"])
+    with pytest.raises(ValueError, match="front-end kernel called"):
+        ev.predict(u8_images(5, (2, 128, 128, 3)))
+
+
+def test_s_stem_route_matches_jax_evaler():
+    """MAF-YOLO-S: stem_apply -> fused_decode_nms, what pallas_stem_apply
+    feeds, against the JAX Evaler's full deploy model."""
+    folded = _folded_with_detections(2, "maf-yolo-s")
+    imgs = u8_images(6, (2, 128, 128, 3))
+    model = build_model("maf-yolo-s", nc=7, deploy=True, skip_stem=True)
+    model.load_state_dict(folded_to_state_dict(folded))
+    with torch.no_grad():
+        outs = stem_apply(model.eval(), stem_build(model.net), torch.from_numpy(imgs))
+    got = {k: v.numpy() for k, v in fused_decode_nms(outs).items()}
+    _assert_matches(got, _jax_predict("maf-yolo-s", folded, imgs))
 
 
 def test_train_form_raises_and_scale_coords():

@@ -6,8 +6,12 @@
 Phases, in order; any failure exits non-zero without a result line:
   1. device     a CUDA card is present; print its name and power limit;
   2. build      nvcc-build the hand-written kernels from mafyolo_tpu_torch/csrc;
+                cuobjdump -sass of the front-end and neck libraries must hold
+                tensor-core instructions (HMMA or HGMMA);
   3. frontend   the fused front-end kernel against its plain version
-                (N bs4@640, S bs2@640, a 256x64 N batch; f32 and bf16);
+                (N bs4@640, S and M bs2@640, a 256x64 N batch, and 200x168
+                batches of N, S and M, whose H/4 = 50 and W/4 = 42 no tile
+                divides; f32 and bf16);
   4. nms        the greedy-NMS kernel against its plain version (B=32,
                 M=512 and M=2000), keep sets exactly equal;
   5. dw_grad    the depthwise weight-gradient kernel against its plain
@@ -25,7 +29,10 @@ Phases, in order; any failure exits non-zero without a result line:
                 layer-20 input of N's bs32@640 forward; the plain version
                 against the model's own layers 19-22;
   9. timings    CUDA-event times: N e2e img/s and p50 batch latency at
-                bs32@640 and each kernel beside its plain version;
+                bs32@640 and each kernel beside its plain version; the
+                front-end kernel for N, S and M at bs32@640 in bf16 beside the
+                deploy model's own layers 0-2 (bf16 cuDNN, flip, cast and /255
+                included);
  10. slice_s    MAF-YOLO-S deploy in bf16, BATCHES batches of bs32 uint8
                 @640 through stem_apply -> fused_decode_nms, the neck kernel
                 run on each batch's layer-20 input, launch counts read
@@ -53,7 +60,13 @@ Phases, in order; any failure exits non-zero without a result line:
                 time and idle share over two profiled steps; the dw_grad
                 kernel against its plain version at every DW site at B=32
                 (values and determinism), and the summed dk time per step,
-                kernel against plain.
+                kernel against plain and against aten's convolution_backward
+                (weight gradient only).
+Each entry of the "kernels" line carries bound_ms, the least time the card
+could take: the larger of the bytes moved (inputs read once, outputs written
+once) over 3.35 TB/s and the operations over the peak rate of the operand
+type (989 TFLOP/s for bf16 and uint8 operands, 67 TFLOP/s for f32), and
+library_ms where PyTorch's own layers or one aten call compute the same.
 Weights are random (seeded); the deploy cls_pred layers are rescaled so that
 an image has about 150 (anchor, class) pairs above conf 0.03; the train run
 starts from the model's own initialization. Nothing here imports JAX. The
@@ -83,6 +96,70 @@ def check(cond, msg):
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
+
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # H100 SXM data sheet, dense
+
+
+def bound(nbytes, flops, kind):
+    """{"bound_ms", "bound_by"}: the least time the card could take."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[kind] * 1e3
+    return {"bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def frontend_bound(cfg, b, h, w, out_bytes=2):
+    """Layers 0-2 without halo recompute: uint8 image in, [b, h/4, w/4, c2]
+    out, the weights once; 2 FLOPs per multiply-add of every conv."""
+    c0, c1, c_, mid, depth, c2 = cfg.dims()
+    p0, p1 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
+    fma = p0 * 27 * c0 + p1 * (9 * c0 * c1 + c1 * 2 * c_ + depth * (2 * c_ * mid + 9 * mid)
+                               + (2 + depth) * c_ * c2)
+    weights = 4 * (27 * c0 + 9 * c0 * c1 + c1 * 2 * c_ + depth * (2 * c_ * mid + 9 * mid)
+                   + (2 + depth) * c_ * c2)
+    return bound(b * h * w * 3 + p1 * c2 * out_bytes + weights, 2 * fma, "bf16")
+
+
+def neck_bound(cfg, b, elem_bytes=2):
+    """Layers 19-22: three sources in, y20 and y22 out, the weights once."""
+    p = b * cfg.h * cfg.h
+    fma = wts = 0
+    for cin, c_, mid, depth, cout in ((sum(cfg.cins), cfg.c1_, cfg.mid1, cfg.d1, cfg.c20),
+                                      (cfg.c20 + cfg.cins[2], cfg.c2_, cfg.mid2, cfg.d2, cfg.c22)):
+        per_px = cin * 2 * c_ + depth * (2 * c_ * mid + 25 * mid) + (2 + depth) * c_ * cout
+        fma += p * per_px
+        wts += 4 * per_px
+    return bound(p * (sum(cfg.cins) + cfg.c20 + cfg.c22) * elem_bytes + wts, 2 * fma,
+                 "bf16" if elem_bytes == 2 else "f32")
+
+
+def model_layers0_2(model, dtype):
+    """The deploy model's own layers 0-2 on uint8 BGR NHWC images, with the
+    flip, the cast and /255 of Evaler.forward's other branch."""
+    net = model.net
+
+    def run(imgs):
+        x = (imgs.flip(-1).to(dtype) / 255.0).permute(0, 3, 1, 2)
+        return net.layer2(net.layer1(net.layer0(x)))
+    return run
+
+
+def tensor_core_check(paths):
+    """cuobjdump -sass of the built front-end and neck libraries must hold
+    HMMA or HGMMA instructions; a missing cuobjdump fails."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(tool), "cuobjdump not found: cannot show the tensor-core instructions")
+    for name in ("frontend", "neck80"):
+        proc = subprocess.run([tool, "-sass", str(paths[name])], capture_output=True,
+                              text=True, timeout=300)
+        check(proc.returncode == 0, f"cuobjdump failed on {name}: {proc.stderr[-300:]}")
+        hmma = sum(" HMMA." in ln for ln in proc.stdout.splitlines())
+        hgmma = sum(" HGMMA." in ln for ln in proc.stdout.splitlines())
+        emit(phase="tensor_cores", kernel=name, lib=os.path.relpath(paths[name], HERE),
+             hmma_instructions=hmma, hgmma_instructions=hgmma)
+        check(hmma + hgmma > 0, f"{name}: no HMMA or HGMMA instruction in its SASS")
 
 
 def dw_sites(model, img, device):
@@ -443,23 +520,34 @@ def main():
                  if "registers" in ln or "spill" in ln]
         emit(phase="build", kernel=name, seconds=secs,
              lib=os.path.relpath(paths[name], HERE), ptxas=ptxas)
+    tensor_core_check(paths)
 
     # ---- 3. front-end kernel vs plain
-    fe_err = {}
+    fe_err, fe_w = {}, {}
     for name, b, (h, w) in (("maf-yolo-n", 4, (IMG, IMG)), ("maf-yolo-s", 2, (IMG, IMG)),
-                            ("maf-yolo-n", 2, (256, 64))):
-        specs = parse_graph(MODEL_ZOO[name], nc=NC)[0]
-        fw = evaler(name, random_folded_variables(specs, seed=1), False, dev).fe_weights
+                            ("maf-yolo-m", 2, (IMG, IMG)), ("maf-yolo-n", 2, (256, 64)),
+                            ("maf-yolo-n", 2, (200, 168)), ("maf-yolo-s", 2, (200, 168)),
+                            ("maf-yolo-m", 2, (200, 168))):
+        if name not in fe_w:
+            specs = parse_graph(MODEL_ZOO[name], nc=NC)[0]
+            fe_w[name] = evaler(name, random_folded_variables(specs, seed=1), False,
+                                dev).fe_weights
+        fw = fe_w[name]
         x = images(2, b, h, w).to(dev)
         want = FE.frontend_plain(x, fw)
         e32, e16, m16 = kernel_vs_plain(FE.frontend_forward(x, fw, torch.float32),
                                         FE.frontend_forward(x, fw, torch.bfloat16), want,
                                         f"frontend {name} {h}x{w}")
-        tile, smem, threads = FE.frontend_plan(fw)
-        emit(phase="frontend_check", model=name, shape=[b, h, w], tile=tile,
-             smem_bytes=smem, threads=threads, max_abs_err_f32=e32, max_abs_err_bf16=e16,
+        plan16, plan32 = FE.frontend_plan(fw), FE.frontend_plan(fw, torch.float32)
+        check((h, w) != (200, 168) or ((h // 4) % plan16[0] and (w // 4) % plan16[1]),
+              f"the bf16 tile {plan16[:2]} divides {h // 4} x {w // 4}")
+        emit(phase="frontend_check", model=name, shape=[b, h, w],
+             bf16_plan=dict(zip(("tile_h", "tile_w", "smem_bytes", "threads"), plan16)),
+             f32_plan=dict(zip(("tile_h", "tile_w", "smem_bytes", "threads"), plan32)),
+             max_abs_err_f32=e32, max_abs_err_bf16=e16,
              mean_abs_err_bf16=m16, out_std=want.std().item())
-        fe_err.setdefault(name, e16)
+        fe_err[name] = max(fe_err.get(name, 0.0), e16)
+    del fe_w
 
     # ---- 4. NMS kernel vs plain
     rng = np.random.default_rng(3)
@@ -567,15 +655,37 @@ def main():
     }
     emit(phase="timing_e2e", model="maf-yolo-n", dtype="bf16", batch=BATCH, img=IMG,
          img_per_s=img_s, batch_ms_mean=e2e_ms, p50_batch_ms=p50, p90_batch_ms=p90, **stage)
-    fe_ms = cuda_ms(lambda: FE.frontend_forward(x, ev.fe_weights, torch.bfloat16), 10)
-    fe_plain_ms = cuda_ms(lambda: FE.frontend_plain(x, ev.fe_weights, torch.bfloat16), 10)
+    # the front-end kernel for N, S and M beside its plain version and the
+    # deploy model's own layers 0-2 in bf16 (the library path it has to beat)
+    fe = {}
+    for name in ("maf-yolo-n", "maf-yolo-s", "maf-yolo-m"):
+        e = ev if name == "maf-yolo-n" else evaler(
+            name, random_folded_variables(parse_graph(MODEL_ZOO[name], nc=NC)[0], seed=1),
+            True, dev)
+        own = model_layers0_2(e.model, torch.bfloat16)
+        fe[name] = {
+            "frontend_ms": cuda_ms(lambda: FE.frontend_forward(x, e.fe_weights, torch.bfloat16), 10),
+            "frontend_f32_ms": cuda_ms(lambda: FE.frontend_forward(x, e.fe_weights), 5),
+            "frontend_plain_ms": cuda_ms(
+                lambda: FE.frontend_plain(x, e.fe_weights, torch.bfloat16), 5),
+            "model_layers0_2_ms": cuda_ms(lambda: own(x), 10),
+            **frontend_bound(e.fe_weights.cfg, BATCH, IMG, IMG)}
+        del e, own
+    fe_n = fe["maf-yolo-n"]
     nms_ms, nms_plain_ms = {}, {}
     for m, (bt, vt) in nms_inputs.items():
         nms_ms[m] = cuda_ms(lambda: G.greedy_nms(bt, vt, 0.65), 10)
         nms_plain_ms[m] = cuda_ms(lambda: G.greedy_nms_plain(bt, vt, 0.65), 3)
-    emit(phase="timing_kernels", frontend_shape=[BATCH, IMG, IMG, 3],
-         frontend_ms=fe_ms, frontend_plain_ms=fe_plain_ms,
-         nms_ms=nms_ms, nms_plain_ms=nms_plain_ms)
+    # greedy NMS at M = 512: boxes, valid and keep moved once; every kept box
+    # is held against every later box (about 16 f32 operations a pair), and
+    # the keep loop is sequential over the kept boxes
+    bt, vt = nms_inputs[512]
+    kept = G.greedy_nms(bt, vt, 0.65)
+    later = torch.arange(511, -1, -1, device=dev)
+    nms_bound = bound(bt.numel() * 4 + 2 * vt.numel(),
+                      16 * int((kept * later).sum().item()), "f32")
+    emit(phase="timing_kernels", frontend_shape=[BATCH, IMG, IMG, 3], frontend=fe,
+         nms_ms=nms_ms, nms_plain_ms=nms_plain_ms, nms_bound=nms_bound)
 
     del gpu32, cpu32, outs
     s_res = s_phases(dev, ev.model, xs_n, nw_n, stem_err)
@@ -589,15 +699,21 @@ def main():
         {"name": "frontend", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/frontend.cu",
          "replaces": "mafyolo_tpu/ops/frontend_pallas.py:467",
          "launches": launches["frontend"], "max_abs_err": fe_err["maf-yolo-n"],
-         "ms": fe_ms, "plain_ms": fe_plain_ms},
+         "ms": fe_n["frontend_ms"], "plain_ms": fe_n["frontend_plain_ms"],
+         "bound_ms": fe_n["bound_ms"], "bound_by": fe_n["bound_by"],
+         "library_ms": fe_n["model_layers0_2_ms"]},
         {"name": "greedy_nms", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "mafyolo_tpu/ops/pallas_nms.py:60",
          "launches": launches["greedy_nms"], "max_abs_err": nms_err,
-         "ms": nms_ms[512], "plain_ms": nms_plain_ms[512]},
+         "ms": nms_ms[512], "plain_ms": nms_plain_ms[512],
+         "bound_ms": nms_bound["bound_ms"], "bound_by": nms_bound["bound_by"],
+         "library_ms": None},
         {"name": "dw_grad", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/dw_grad.cu",
          "replaces": "mafyolo_tpu/ops/dw_grad_pallas.py:143 and :47",
          "launches": train["launches"], "max_abs_err": dk_err,
-         "ms": train["dk_ms"], "plain_ms": train["dk_plain_ms"]},
+         "ms": train["dk_ms"], "plain_ms": train["dk_plain_ms"],
+         "bound_ms": train["dk_bound"]["bound_ms"], "bound_by": train["dk_bound"]["bound_by"],
+         "library_ms": train["dk_library_ms"]},
         *s_res["kernels"],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -714,6 +830,13 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
                          "p90_batch_ms": fe_p90, **fe_stages})
     stem_ms = stem_stages["stem_ms"]
     stem_plain_ms = cuda_ms(lambda: S.stem_plain(x, sw, bf16), 10)
+    # the deploy model's own layer 0 in bf16 (flip, cast and /255 included)
+    layer0 = ev_s.model.net.layer0
+    stem_library_ms = cuda_ms(
+        lambda: layer0((x.flip(-1).to(bf16) / 255.0).permute(0, 3, 1, 2)), 10)
+    c0 = sw.cout
+    stem_bound = bound(x.numel() + BATCH * (IMG // 2) ** 2 * c0 * 2 + 28 * c0 * 4,
+                       2 * 27 * c0 * BATCH * (IMG // 2) ** 2, "bf16")
     neck = {}
     for tag, mdl, srcs, w in (("maf-yolo-s", model, xs, nw), ("maf-yolo-n", n_model, xs_n, nw_n)):
         srcs32 = [t.float() for t in srcs]
@@ -721,7 +844,8 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
         neck[tag] = {"neck_ms": cuda_ms(lambda: N.neck80_forward(*srcs, w, bf16), 10),
                      "neck_f32_ms": cuda_ms(lambda: N.neck80_forward(*srcs32, w), 5),
                      "neck_plain_ms": cuda_ms(lambda: N.neck80_plain(*srcs, w), 5),
-                     "model_layers19_22_ms": cuda_ms(lambda: own(*srcs), 10)}
+                     "model_layers19_22_ms": cuda_ms(lambda: own(*srcs), 10),
+                     **neck_bound(w.cfg, BATCH)}
     x_f, w_f = P.operands(dev)
     P.fma_chain.launches = 0
     fma = P.measure(x_f, w_f)                    # the probe tool's own entry
@@ -731,8 +855,11 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
     scale = (x_f.float().abs().max() * w_f.abs().sum()).item()
     check(torch.allclose(got, want, rtol=2 ** -7, atol=1e-5 * scale),
           f"fma_probe kernel disagrees with the plain f32 chain: {fma_err}")
+    n_el = x_f.numel()
+    fma_bound = bound(4 * n_el + 4 * P.TAPS, 2 * P.TAPS * n_el, "f32")
     emit(phase="timing_kernels_s", stem_shape=[BATCH, IMG, IMG, 3], stem_ms=stem_ms,
-         stem_plain_ms=stem_plain_ms, neck_batch=BATCH, neck_h=cfg.h, neck=neck,
+         stem_plain_ms=stem_plain_ms, model_layer0_ms=stem_library_ms,
+         stem_bound=stem_bound, fma_bound=fma_bound, neck_batch=BATCH, neck_h=cfg.h, neck=neck,
          fma_shape=list(P.SHAPE), fma_max_abs_err=fma_err,
          fma_tolerance="rtol 2^-7, atol 1e-5 * max|x| * sum|w| (one bf16 rounding)",
          fma=[{"name": n, "ms": ms, "tflops": tf, "gb_per_s": gb} for n, ms, tf, gb in fma])
@@ -740,14 +867,20 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
     return {"kernels": [
         {"name": "stem", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/stem.cu",
          "replaces": "mafyolo_tpu/ops/stem_pallas.py:99", "launches": launches["stem"],
-         "max_abs_err": stem_err, "ms": stem_ms, "plain_ms": stem_plain_ms},
+         "max_abs_err": stem_err, "ms": stem_ms, "plain_ms": stem_plain_ms,
+         "bound_ms": stem_bound["bound_ms"], "bound_by": stem_bound["bound_by"],
+         "library_ms": stem_library_ms},
         {"name": "neck80", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/neck80.cu",
          "replaces": "mafyolo_tpu/ops/neck_pallas.py:259", "launches": launches["neck80"],
          "max_abs_err": neck_err, "ms": neck[name]["neck_ms"],
-         "plain_ms": neck[name]["neck_plain_ms"]},
+         "plain_ms": neck[name]["neck_plain_ms"], "bound_ms": neck[name]["bound_ms"],
+         "bound_by": neck[name]["bound_by"],
+         "library_ms": neck[name]["model_layers19_22_ms"]},
         {"name": "fma_probe", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/fma_probe.cu",
          "replaces": "tools/profile_vpu.py:51", "launches": fma_launches,
-         "max_abs_err": fma_err, "ms": fma[2][1], "plain_ms": fma[0][1]},
+         "max_abs_err": fma_err, "ms": fma[2][1], "plain_ms": fma[0][1],
+         "bound_ms": fma_bound["bound_ms"], "bound_by": fma_bound["bound_by"],
+         "library_ms": None},
     ]}
 
 
@@ -984,7 +1117,8 @@ def train_phases(dev):
     # the dw_grad kernel against its plain version at every site at B=32
     # (up to 819 200 terms per tap, several tiles per block, the path's
     # n_split), then the summed dk time per step, kernel against plain
-    dk_ms = dk_plain_ms = b32_err = b32_rel = 0.0
+    dk_ms = dk_plain_ms = dk_library_ms = b32_err = b32_rel = 0.0
+    dk_bytes = dk_flops = 0
     for c, h, w, k, pad, dil in sites:
         gen = torch.Generator(device=dev).manual_seed(c + h + k)
         # an offset keeps x nonzero at every border
@@ -1003,6 +1137,14 @@ def train_phases(dev):
         b32_err, b32_rel = max(b32_err, err), max(b32_rel, err / scale)
         dk_ms += cuda_ms(lambda: DG.dw_grad(x, g, k, pad, dil), iters=5)
         dk_plain_ms += cuda_ms(lambda: DG.dw_grad_plain(x, g, k, pad, dil), iters=2, warmup=1)
+        # the library's weight gradient of the same depthwise conv (timing
+        # only; the port never calls it)
+        wk = torch.zeros((c, 1, k, k), dtype=torch.bfloat16, device=dev)
+        dk_library_ms += cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            g, x, wk, None, [1, 1], [pad, pad], [dil, dil], False, [0, 0], c,
+            [False, True, False]), iters=5)
+        dk_bytes += 2 * x.numel() * 2 + c * k * k * 4
+        dk_flops += 2 * k * k * x.numel()
         DG.dw_grad.launches = before       # check and timing launches are not the path's
     emit(phase="dw_grad_check_b32", sites=len(sites), batch=BATCH, dtype="bf16",
          max_abs_err=b32_err, max_rel_err=b32_rel,
@@ -1013,9 +1155,11 @@ def train_phases(dev):
          accumulate_step_ms=float(np.mean([m for m, a in step_ms if not a])),
          **{f"{s_}_ms": float(np.mean(v)) for s_, v in per.items()},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-         dk_sites=len(sites), dk_kernel_ms_per_step=dk_ms, dk_plain_ms_per_step=dk_plain_ms)
+         dk_sites=len(sites), dk_kernel_ms_per_step=dk_ms, dk_plain_ms_per_step=dk_plain_ms,
+         dk_library_ms=dk_library_ms, dk_bound=bound(dk_bytes, dk_flops, "bf16"))
     return {"launches": launches, "dk_ms": dk_ms, "dk_plain_ms": dk_plain_ms,
-            "dk_err": b32_err}
+            "dk_err": b32_err, "dk_library_ms": dk_library_ms,
+            "dk_bound": bound(dk_bytes, dk_flops, "bf16")}
 
 
 if __name__ == "__main__":

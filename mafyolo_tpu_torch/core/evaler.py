@@ -19,9 +19,13 @@ from mafyolo_tpu_torch.utils.bridge import folded_to_state_dict
 
 
 class Evaler:
+    """Runs on the card unless the caller names another device
+    (`device="cpu"`, as the CPU tests do); without a card the default
+    raises at the first tensor that is moved."""
+
     def __init__(self, conf_thres: float = 0.03, iou_thres: float = 0.65,
                  max_det: int = 300, half: bool = True,
-                 scale_exact: bool = False, device="cpu"):
+                 scale_exact: bool = False, device="cuda"):
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
         self.max_det = max_det

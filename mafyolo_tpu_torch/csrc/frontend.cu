@@ -13,26 +13,43 @@
 // reads them, and expand outputs outside the image are 0 before the DW
 // stencil reads them.
 //
-// Bound on the H100: device-memory bandwidth and occupancy. The channel
-// counts are small (N: 24/48/24/72), so as separate layers the 320- and
-// 160-level maps would go to device memory and back several times (at bs32
-// @640 the L0 map alone is 315 MB in f32) for little arithmetic each.
-// Design: one thread block per T x T output tile at H/4 with all channels.
-// It stages in shared memory the input window, L0 over the tile plus halo,
-// L1 over the tile plus the DW halo (`depth` pixels a side), and the RepHDW
-// intermediates; none of them reaches device memory. Each conv, the DW
-// stencil and SiLU run with f32 accumulation; a thread's work item is a
-// register tile of 2 pixels x 4 output channels, channel groups fastest, so
-// one 16-byte weight read (HWIO, output channel fastest) feeds 8 FMAs and
-// activation reads are shared-memory broadcasts. Regions are reused across
-// phases (L0's region later holds the expand and DW outputs). T is the
-// largest of 8, 4, 2 whose footprint fits the card's per-block shared
-// memory (N and S: 8; M: 4). With the maps kept on chip, the work left is
-// f32 FMAs on CUDA cores and the shared-memory reads that feed them.
-// Tensor cores (wgmma), TMA and overlap of the phases are later work.
+// Bound on the H100: as separate layers the 320- and 160-level maps would
+// go to device memory and back several times, so both kernels here keep
+// them on chip: one thread block per output tile at H/4 with all channels
+// stages the input window, L0 over the tile plus halo, L1 over the tile
+// plus the DW halo (`depth` pixels a side) and the RepHDW intermediates in
+// shared memory. With the maps on chip the work left is arithmetic (S at
+// bs32@640: 39.5 GFMA without halo recompute, against 144 MB of traffic),
+// and two kernels do it:
+//
+//   * frontend_mma_kernel (the bf16 entry point, the serving path): L1 as an
+//     implicit GEMM (rows = the tile's L1 pixels, K = 9 taps x c0, the A
+//     fragment of tap (u, v) is the L0 pixel at (2y+u, 2x+v)) and every 1x1
+//     conv run on the tensor cores: bf16 mma.sync m16n8k16 with f32
+//     accumulation, A by ldmatrix from bf16 activations in shared memory, B
+//     read as whole fragments from a host-packed bf16 buffer
+//     (csrc/mma_bf16.cuh), one K tile ahead of the MMAs that use it. With one
+//     512-thread block an SM the phases are bound by instruction issue, so
+//     the epilogues are kept short: SiLU by the hardware tanh, biases once a
+//     work item, row/column splits by a float multiply, 32-bit input loads.
+//     bf16 staging halves the footprint, so the tile is
+//     a rectangle up to 16 x 16 (less halo recompute). Channel counts are
+//     padded to 16 with zero weights, and each producer writes zeros into
+//     its pad columns, so a K tile never reads stale shared memory. L0 is a
+//     GEMM too (K = 27 taps padded to 32; a lane builds its A fragment from
+//     the window's bytes, which are exact in bf16); only the DW stencil stays
+//     on the CUDA cores. Bias, ReLU/SiLU and the zero-padding masks run in
+//     f32 in each epilogue and a value is rounded to bf16 once, when it is
+//     stored for the next phase.
+//   * frontend_kernel (the f32 entry point, the reference route of the
+//     detection gates): every conv as f32 FMAs on the CUDA cores, a T x T
+//     tile with T the largest of 8, 4, 2 that fits; a thread's work item is
+//     a register tile of 2 pixels x 4 output channels.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -126,12 +143,6 @@ __device__ __forceinline__ float4 ldg4(const float* p) {  // read-only weights
 
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(v.x, v.y);
-  q[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
 // Register tile of one work item: PX output pixels x 4 output channels.
@@ -432,6 +443,558 @@ int launch(const uint8_t* img, const float* w, OutT* out, Dims d, void* stream) 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core kernel.
+
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// Offsets (in bf16 elements) of each packed MMA weight; the order is
+// ops/frontend.py:_mma_parts. Each is a [K, N] matrix padded to 16 both
+// ways, in fragment order.
+struct WOffB {
+  int w0, w1, win, m0, mstride, wexp_len, wout, total;
+};
+
+__host__ __device__ inline WOffB mma_offsets(const Dims& d) {
+  const int c0p = pad16(d.c0), c1p = pad16(d.c1), csp = pad16(d.cs),
+            midp = pad16(d.mid);
+  WOffB o;
+  o.w0 = 0;                             // [27 -> 32, c0p]
+  o.w1 = o.w0 + 32 * c0p;
+  o.win = o.w1 + 9 * c0p * c1p;
+  o.m0 = o.win + c1p * 2 * csp;
+  o.wexp_len = csp * midp;              // then wproj [midp, csp]
+  o.mstride = 2 * csp * midp;
+  o.wout = o.m0 + d.depth * o.mstride;
+  o.total = o.wout + (2 + d.depth) * csp * pad16(d.c2);
+  return o;
+}
+
+// Shared-memory plan for a th x tw output tile. Strides are in bf16
+// elements: the padded width + 8, so that the eight 16-byte rows of an
+// ldmatrix fall on different banks. Three regions, reused across phases:
+//   A  L0 (two column-parity planes a row), later the expand and DW outputs
+//   B  the uint8 input window, then L1, then the y parts
+//   C  x2 = [a | b], each half padded to 16 channels
+struct PlanB {
+  int th, tw, r1h, r1w, r0h, r0w, hw0, rinh, rinw;
+  int c0p, c1p, csp, midp, c2p;
+  int s0, s1, sx, st, sy;
+  int off_b, off_c;   // byte offsets of regions B and C (A at 0)
+  int dw_off;         // element offset of the DW output inside region A
+  int in_pitch;       // bytes between rows of the input window
+  size_t bytes;
+  int threads;
+};
+
+__host__ __device__ inline size_t up16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+__host__ __device__ inline PlanB make_plan_b(const Dims& d, int th, int tw) {
+  PlanB p;
+  p.th = th;
+  p.tw = tw;
+  p.r1h = th + 2 * d.depth;
+  p.r1w = tw + 2 * d.depth;
+  p.r0h = 2 * p.r1h + 1;
+  p.r0w = 2 * p.r1w + 1;
+  p.hw0 = p.r1w + 1;            // even columns of an L0 row; odd ones: r1w
+  p.rinh = 2 * p.r0h + 1;
+  p.rinw = 2 * p.r0w + 1;
+  p.c0p = pad16(d.c0);
+  p.c1p = pad16(d.c1);
+  p.csp = pad16(d.cs);
+  p.midp = pad16(d.mid);
+  p.c2p = pad16(d.c2);
+  p.s0 = p.c0p + 8;
+  p.s1 = p.c1p + 8;
+  p.sx = 2 * p.csp + 8;
+  p.st = p.midp + 8;
+  p.sy = p.csp + 8;
+  const size_t r1 = (size_t)p.r1h * p.r1w;
+  const size_t l0 = (size_t)p.r0h * 2 * p.hw0 * p.s0 * 2;
+  p.dw_off = (int)(r1 * p.st);
+  const size_t tdw = (r1 + (size_t)(p.r1h - 2) * (p.r1w - 2)) * p.st * 2;
+  size_t ys = 0;
+  for (int m = 0; m < d.depth; ++m)
+    ys += (size_t)(p.r1h - 2 * (m + 1)) * (p.r1w - 2 * (m + 1)) * p.sy * 2;
+  p.in_pitch = (p.rinw * 3 + 3 + 3) / 4 * 4;   // up to 3 bytes of shift, whole words
+  size_t b = (size_t)p.rinh * p.in_pitch;
+  if (r1 * p.s1 * 2 > b) b = r1 * p.s1 * 2;
+  if (ys > b) b = ys;
+  p.off_b = (int)up16(l0 > tdw ? l0 : tdw);
+  p.off_c = p.off_b + (int)up16(b);
+  p.bytes = (size_t)p.off_c + up16(r1 * p.sx * 2);
+  p.threads = 0;
+  return p;
+}
+
+constexpr int kMaxNp0 = 4;   // layer 0 keeps its B fragments in registers: c0 <= 64
+
+struct ORow {
+  __nv_bfloat16* ptr;   // first channel of the output row; null: skip the row
+  bool zero;            // write zeros (the row lies outside the image)
+};
+
+// One conv as a GEMM on the tensor cores: out[row][col] = act(bias(col) +
+// sum over segments s, k < 16 * kseg(s): A_s[row][k] * B[k][col]) for
+// row < P. aseg(s, row) is the shared-memory address of A_s[row][0]; the
+// packed B walks the segments' K tiles in order, `npairs` N-tile pairs a K
+// tile. A warp's work item is MT * 16 rows x 32 columns: MT = 2 reads each B
+// fragment once for two row tiles, MT = 1 gives the short phases enough
+// items for every warp. Columns >= nstore are not stored.
+template <bool SILU, int MT, class ASeg, class KSeg, class Bias, class Out>
+__device__ __forceinline__ void mma_phase(int P, int nseg, ASeg aseg, KSeg kseg,
+                                          const __nv_bfloat16* __restrict__ wb, int npairs,
+                                          Bias bias, int nstore, Out orow) {
+  constexpr int kRows = MT * 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int nblocks = (npairs + 1) / 2, items = ((P + kRows - 1) / kRows) * nblocks;
+  const int g = lane >> 2, t = lane & 3;
+  for (int it = warp; it < items; it += nwarps) {
+    const int mb = it / nblocks;
+    const int m0 = mb * kRows, np0 = (it - mb * nblocks) * 2;
+    const int npv = min(2, npairs - np0);
+    float acc[MT][4][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    // The K walk, one tile ahead: the fragments of the next K tile are
+    // loaded before the MMAs of this one are issued, so a warp waits for a
+    // load once, not once a tile.
+    const uint4* b = reinterpret_cast<const uint4*>(wb) + (size_t)np0 * 32 + lane;
+    uint32_t a_addr[MT], a_cur[MT][4], a_nxt[MT][4];
+    uint4 b_cur[2], b_nxt[2];
+    int s = 0, kt = 0, kts = kseg(0);
+    auto seg_start = [&]() {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        a_addr[i] = mma::smem_u32(aseg(s, min(m0 + i * 16 + (lane & 15), P - 1))) +
+                    (lane >> 4) * 16;
+    };
+    auto load = [&](uint32_t (&a)[MT][4], uint4 (&bb)[2]) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma::ldmatrix_x4(a[i], a_addr[i] + kt * 32);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (j < npv) bb[j] = __ldg(b + j * 32);
+    };
+    seg_start();
+    load(a_cur, b_cur);
+    for (;;) {
+      b += npairs * 32;
+      if (++kt == kts) {
+        kt = 0;
+        if (++s < nseg) {
+          kts = kseg(s);
+          seg_start();
+        }
+      }
+      const bool more = s < nseg;
+      if (more) load(a_nxt, b_nxt);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (j < npv) {
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma::mma_16816(acc[i][2 * j], a_cur[i], b_cur[j].x, b_cur[j].y);
+            mma::mma_16816(acc[i][2 * j + 1], a_cur[i], b_cur[j].z, b_cur[j].w);
+          }
+        }
+      if (!more) break;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a_cur[i][e] = a_nxt[i][e];
+      b_cur[0] = b_nxt[0];
+      b_cur[1] = b_nxt[1];
+    }
+    // the lane's 8 columns are the same for every row: their biases once
+    float bv[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = np0 * 16 + j * 8 + 2 * t;
+      const bool on = j < 2 * npv && col < nstore;
+      bv[j][0] = on ? bias(col) : 0.f;
+      bv[j][1] = on ? bias(col + 1) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + i * 16 + h * 8 + g;
+        if (row >= P) continue;
+        const ORow o = orow(row);
+        if (o.ptr == nullptr) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = np0 * 16 + j * 8 + 2 * t;
+          if (j >= 2 * npv || col >= nstore) continue;
+          float v0 = acc[i][j][2 * h] + bv[j][0], v1 = acc[i][j][2 * h + 1] + bv[j][1];
+          if (SILU) {
+            v0 = mma::silu(v0);
+            v1 = mma::silu(v1);
+          } else {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          if (o.zero) v0 = v1 = 0.f;
+          mma::store_bf162(o.ptr + col, v0, v1);
+        }
+      }
+  }
+}
+
+// x / w and x % w for 0 <= x < 2^20 and a small w by a float multiply with
+// inv = 1 / w (the margin (x + 0.5) / w keeps to either neighbouring integer
+// is at least 0.5 / w, far above the rounding error): a few instructions
+// where an integer division takes about twenty.
+struct FastDiv {
+  int w;
+  float inv;
+  __device__ __forceinline__ explicit FastDiv(int w_) : w(w_), inv(1.f / (float)w_) {}
+  __device__ __forceinline__ int div(int x) const {
+    return __float2int_rz(((float)x + 0.5f) * inv);
+  }
+  __device__ __forceinline__ void divmod(int x, int& q, int& r) const {
+    q = div(x);
+    r = x - q * w;
+  }
+};
+
+__device__ __forceinline__ void load8(float (&acc)[8], const float* __restrict__ p) {
+  const float4 a = ldg4(p), b = ldg4(p + 4);
+  acc[0] = a.x; acc[1] = a.y; acc[2] = a.z; acc[3] = a.w;
+  acc[4] = b.x; acc[5] = b.y; acc[6] = b.z; acc[7] = b.w;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+frontend_mma_kernel(const uint8_t* __restrict__ img, const float* __restrict__ w,
+                    const __nv_bfloat16* __restrict__ wm, __nv_bfloat16* __restrict__ out,
+                    Dims d, PlanB p, int tiles_x, unsigned long long* __restrict__ prof) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* s_l0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_t = s_l0;                   // expand output, Ri x Ri x midp
+  __nv_bfloat16* s_dw = s_l0 + p.dw_off;       // DW output, Rn x Rn x midp
+  uint8_t* s_in = smem_raw + p.off_b;
+  __nv_bfloat16* s_l1 = reinterpret_cast<__nv_bfloat16*>(smem_raw + p.off_b);
+  __nv_bfloat16* s_ys = s_l1;
+  __nv_bfloat16* s_x2 = reinterpret_cast<__nv_bfloat16*>(smem_raw + p.off_c);
+
+  const WOff wo = weight_offsets(d);
+  const WOffB wb = mma_offsets(d);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int b = blockIdx.y;
+  const int ty = blockIdx.x / tiles_x, tx = blockIdx.x % tiles_x;
+  const int D = d.depth;
+  const int H0 = d.H / 2, W0 = d.W / 2, H1 = d.H / 4, W1 = d.W / 4;
+  const int y1o = ty * p.th - D, x1o = tx * p.tw - D;   // L1 grid origin
+  const int y0o = 2 * y1o - 1, x0o = 2 * x1o - 1;       // L0 grid origin
+  const int yio = 2 * y0o - 1, xio = 2 * x0o - 1;       // input window origin
+  const uint4 zero16 = make_uint4(0u, 0u, 0u, 0u);
+  // With `prof` (the tuning entry point only) thread 0 of every block adds
+  // the clocks of each phase, barrier included, to prof[phase]: 0 input, 1 L0,
+  // 2 L1, 3 cv_in, 4 expand, 5 DW, 6 project, 7 cv_out.
+  unsigned long long t0 = prof ? clock64() : 0;
+  auto phase_end = [&](int phase) {
+    __syncthreads();
+    if (prof && tid == 0) {
+      const unsigned long long t1 = clock64();
+      atomicAdd(prof + phase, t1 - t0);
+      t0 = t1;
+    }
+  };
+
+  // Phase 0: input window, zero outside the image. A window row is one run
+  // of bytes in the image; it is copied as the aligned 32-bit words that
+  // cover it (an image row is W * 3 bytes, a multiple of 4, so a word lies
+  // inside the image or outside it), and `shift` bytes into the first word
+  // the window begins.
+  const int shift = (xio * 3) & 3;
+  {
+    const uint8_t* im = img + (size_t)b * d.H * d.W * 3;
+    const int wb3 = d.W * 3, a0 = xio * 3 - shift, nw = p.in_pitch / 4;
+    uint32_t* s_in32 = reinterpret_cast<uint32_t*>(s_in);
+    for (int i = tid; i < p.rinh * nw; i += nth) {
+      const int r = i / nw, j = i - r * nw;
+      const int gy = yio + r, gxb = a0 + 4 * j;
+      s_in32[i] = (gy >= 0 && gy < d.H && gxb >= 0 && gxb < wb3)
+                      ? __ldg(reinterpret_cast<const uint32_t*>(im + (size_t)gy * wb3 + gxb))
+                      : 0u;
+    }
+  }
+  phase_end(0);
+
+  // Phase 1: L0 over r0h x r0w as a GEMM on the tensor cores: rows are L0
+  // pixels, K = 27 taps (u, v, ci) padded to 32, and a lane builds its A
+  // fragment straight from the window's bytes (0..255 are exact in bf16; /255
+  // and the BGR flip sit in the weights). The B fragments do not change from
+  // item to item and stay in registers. Zero outside the H/2 image (L1's
+  // padding) and in the pad channels (zero weights and bias). A row is
+  // stored as its even columns, then its odd ones, so that L1's stride-2
+  // taps read neighbouring pixels.
+  {
+    const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int np = p.c0p / 16;
+    uint4 bfr[2][kMaxNp0];
+    int koff[2][4];
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+#pragma unroll
+      for (int j = 0; j < kMaxNp0; ++j)
+        bfr[kt][j] = j < np ? __ldg(reinterpret_cast<const uint4*>(wm + wb.w0) +
+                                    (kt * np + j) * 32 + lane)
+                            : zero16;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {   // k of a0.lo, a0.hi, a2.lo, a2.hi
+        const int k = kt * 16 + (q >> 1) * 8 + 2 * t + (q & 1);
+        koff[kt][q] = k < 27 ? (k / 9) * p.in_pitch + k % 9 : -1;
+      }
+    }
+    const int P = p.r0h * p.r0w;
+    const FastDiv by_r0w(p.r0w);
+    for (int it = tid >> 5; it < (P + 15) / 16; it += nth >> 5) {
+      const uint8_t* src[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int ry, rx;
+        by_r0w.divmod(min(it * 16 + h * 8 + g, P - 1), ry, rx);
+        src[h] = s_in + 2 * ry * p.in_pitch + shift + 2 * rx * 3;
+      }
+      float acc[2 * kMaxNp0][4];
+#pragma unroll
+      for (int j = 0; j < 2 * kMaxNp0; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt) {
+        float v[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            v[h][q] = koff[kt][q] >= 0 ? (float)src[h][koff[kt][q]] : 0.f;
+        const uint32_t a[4] = {mma::pack_bf162(v[0][0], v[0][1]), mma::pack_bf162(v[1][0], v[1][1]),
+                               mma::pack_bf162(v[0][2], v[0][3]), mma::pack_bf162(v[1][2], v[1][3])};
+#pragma unroll
+        for (int j = 0; j < kMaxNp0; ++j)
+          if (j < np) {
+            mma::mma_16816(acc[2 * j], a, bfr[kt][j].x, bfr[kt][j].y);
+            mma::mma_16816(acc[2 * j + 1], a, bfr[kt][j].z, bfr[kt][j].w);
+          }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int px = it * 16 + h * 8 + g;
+        if (px >= P) continue;
+        int ry, rx;
+        by_r0w.divmod(px, ry, rx);
+        const int gy = y0o + ry, gx = x0o + rx;
+        const bool inside = gy >= 0 && gy < H0 && gx >= 0 && gx < W0;
+        __nv_bfloat16* dst = s_l0 + ((size_t)(ry * 2 + (rx & 1)) * p.hw0 + (rx >> 1)) * p.s0;
+#pragma unroll
+        for (int j = 0; j < 2 * kMaxNp0; ++j) {
+          const int col = j * 8 + 2 * t;
+          if (col >= p.c0p) continue;
+          float v0 = 0.f, v1 = 0.f;
+          if (inside && col < d.c0) {
+            v0 = fmaxf(acc[j][2 * h] + __ldg(w + wo.b0 + col), 0.f);
+            v1 = fmaxf(acc[j][2 * h + 1] + __ldg(w + wo.b0 + col + 1), 0.f);
+          }
+          mma::store_bf162(dst + col, v0, v1);
+        }
+      }
+    }
+  }
+  phase_end(1);
+
+  // Phase 2: L1 over r1h x r1w as an implicit GEMM, K = 9 taps x c0p.
+  // Values outside the image are never read unmasked: they feed only expand
+  // outputs, which are zeroed there.
+  const FastDiv by_r1w(p.r1w);
+  mma_phase<false, 2>(
+      p.r1h * p.r1w, 9,
+      [&](int s, int row) {
+        int py, px;
+        by_r1w.divmod(row, py, px);
+        const int u = s / 3, v = s % 3;
+        return s_l0 + ((size_t)((2 * py + u) * 2 + (v & 1)) * p.hw0 + px + (v >> 1)) * p.s0;
+      },
+      [&](int) { return p.c0p / 16; }, wm + wb.w1, p.c1p / 16,
+      [&](int col) { return col < d.c1 ? __ldg(w + wo.b1 + col) : 0.f; }, p.c1p,
+      [&](int row) { return ORow{s_l1 + (size_t)row * p.s1, false}; });
+  phase_end(2);
+
+  // Phase 3: x2 = silu(cv_in(L1)), stored [a | b], each half csp wide.
+  mma_phase<true, 2>(
+      p.r1h * p.r1w, 1, [&](int, int row) { return s_l1 + (size_t)row * p.s1; },
+      [&](int) { return p.c1p / 16; }, wm + wb.win, 2 * p.csp / 16,
+      [&](int col) {
+        const int half = col >= p.csp, c = col - half * p.csp;
+        return c < d.cs ? __ldg(w + wo.bin + half * d.cs + c) : 0.f;
+      },
+      2 * p.csp, [&](int row) { return ORow{s_x2 + (size_t)row * p.sx, false}; });
+  phase_end(3);
+
+  // Phase 4: the bottleneck chain. Bottleneck m reads the grid Ri = R1 - 2m
+  // (offset m from the R1 grid) and writes y_m on Rn = Ri - 2.
+  const __nv_bfloat16* y_prev = nullptr;
+  int yoff = 0;
+  for (int m = 0; m < D; ++m) {
+    const int rih = p.r1h - 2 * m, riw = p.r1w - 2 * m, rnh = rih - 2, rnw = riw - 2;
+    const float* bexp = w + wo.m0 + m * wo.mstride + d.cs * d.mid;
+    const float* wdw = bexp + d.mid;
+    const float* bdw = wdw + 9 * d.mid;
+    const float* bproj = bdw + d.mid + d.mid * d.cs;
+    const __nv_bfloat16* wexp = wm + wb.m0 + m * wb.mstride;
+    const FastDiv by_riw(riw);
+    mma_phase<true, 1>(
+        rih * riw, 1,
+        [&](int, int row) {
+          return m == 0 ? s_x2 + (size_t)row * p.sx + p.csp : y_prev + (size_t)row * p.sy;
+        },
+        [&](int) { return p.csp / 16; }, wexp, p.midp / 16,
+        [&](int col) { return col < d.mid ? __ldg(bexp + col) : 0.f; }, p.midp,
+        [&](int row) {
+          int ry, rx;
+          by_riw.divmod(row, ry, rx);
+          const int gy = y1o + m + ry, gx = x1o + m + rx;
+          return ORow{s_t + (size_t)row * p.st, gy < 0 || gy >= H1 || gx < 0 || gx >= W1};
+        });
+    phase_end(4);
+    {
+      // one work item: 8 channels x a run of 2 pixels along W, so a tap and
+      // its weights feed two outputs
+      const int ncg = p.midp / 8, runs = (rnw + 1) / 2, items = rnh * runs * ncg;
+      const FastDiv by_ncg(ncg), by_runs(runs);
+      for (int it = tid; it < items; it += nth) {
+        int pr, o, yy, xx;
+        by_ncg.divmod(it, pr, o);
+        by_runs.divmod(pr, yy, xx);
+        o *= 8;
+        xx *= 2;
+        const bool two = xx + 1 < rnw;
+        __nv_bfloat16* dst = s_dw + (size_t)(yy * rnw + xx) * p.st + o;
+        if (o >= d.mid) {
+          *reinterpret_cast<uint4*>(dst) = zero16;
+          if (two) *reinterpret_cast<uint4*>(dst + p.st) = zero16;
+          continue;
+        }
+        const __nv_bfloat16* src = s_t + (size_t)(yy * riw + xx) * p.st + o;
+        float acc0[8], acc1[8];
+        load8(acc0, bdw + o);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc1[e] = acc0[e];
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          float wk[3][8];
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) load8(wk[kx], wdw + (ky * 3 + kx) * d.mid + o);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {   // input columns xx .. xx + 3
+            if (j == 3 && !two) continue;   // the last column of the Ri grid is xx + 2
+            float x[8];
+            mma::unpack8(*reinterpret_cast<const uint4*>(src + (ky * riw + j) * p.st), x);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              if (j < 3) acc0[e] = fmaf(wk[j][e], x[e], acc0[e]);
+              if (j > 0) acc1[e] = fmaf(wk[j - 1][e], x[e], acc1[e]);
+            }
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          acc0[e] = mma::silu(acc0[e]);
+          acc1[e] = mma::silu(acc1[e]);
+        }
+        *reinterpret_cast<uint4*>(dst) = mma::pack8(acc0);
+        if (two) *reinterpret_cast<uint4*>(dst + p.st) = mma::pack8(acc1);
+      }
+    }
+    phase_end(5);
+    __nv_bfloat16* y = s_ys + yoff;
+    mma_phase<true, 1>(
+        rnh * rnw, 1, [&](int, int row) { return s_dw + (size_t)row * p.st; },
+        [&](int) { return p.midp / 16; }, wexp + wb.wexp_len, p.csp / 16,
+        [&](int col) { return col < d.cs ? __ldg(bproj + col) : 0.f; }, p.csp,
+        [&](int row) { return ORow{y + (size_t)row * p.sy, false}; });
+    phase_end(6);
+    y_prev = y;
+    yoff += rnh * rnw * p.sy;
+  }
+
+  // Phase 5: cv_out over the tile: one K segment for x2 = [a | b] and one
+  // per y part, each read at the tile's offset inside its grid.
+  const FastDiv by_tw(p.tw);
+  mma_phase<true, 1>(
+      p.th * p.tw, 1 + D,
+      [&](int s, int row) {
+        int ry, rx;
+        by_tw.divmod(row, ry, rx);
+        if (s == 0) return s_x2 + (size_t)((ry + D) * p.r1w + rx + D) * p.sx;
+        int off = 0;
+        for (int m = 0; m < s - 1; ++m)
+          off += (p.r1h - 2 * (m + 1)) * (p.r1w - 2 * (m + 1)) * p.sy;
+        const int rnw = p.r1w - 2 * s, e = D - s;
+        return s_ys + off + (size_t)((ry + e) * rnw + rx + e) * p.sy;
+      },
+      [&](int s) { return (s == 0 ? 2 : 1) * p.csp / 16; }, wm + wb.wout, p.c2p / 16,
+      [&](int col) { return col < d.c2 ? __ldg(w + wo.bout + col) : 0.f; }, d.c2,
+      [&](int row) {
+        int ry, rx;
+        by_tw.divmod(row, ry, rx);
+        const int Y = ty * p.th + ry, X = tx * p.tw + rx;
+        return ORow{Y < H1 && X < W1 ? out + (((size_t)b * H1 + Y) * W1 + X) * d.c2 : nullptr,
+                    false};
+      });
+  if (prof) phase_end(7);
+}
+
+// The largest tile of the list whose footprint fits the card's per-block
+// shared memory: the larger the tile, the smaller the share of halo pixels
+// that L0 and L1 compute again. 256 threads when two blocks share an SM,
+// 512 when one block holds it alone.
+cudaError_t pick_plan_b(const Dims& d, PlanB* out) {
+  int dev = 0, max_smem = 0, sm_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err != cudaSuccess) return err;
+  const int tiles[][2] = {{16, 16}, {8, 16}, {8, 8}, {4, 8}, {4, 4}};
+  for (const auto& t : tiles) {
+    *out = make_plan_b(d, t[0], t[1]);
+    if (out->bytes <= (size_t)max_smem) {
+      // a block also reserves 1 KB of the SM's shared memory
+      out->threads = 2 * (out->bytes + 1024) <= (size_t)sm_smem ? 256 : 512;
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorInvalidConfiguration;
+}
+
+int launch_mma(const uint8_t* img, const float* w, const __nv_bfloat16* wm,
+               __nv_bfloat16* out, Dims d, const PlanB& p, unsigned long long* prof,
+               void* stream) {
+  // 16-byte activation vectors and weight rows: every width a multiple of 8
+  // (all MAF-YOLO widths are).
+  if (d.H % 4 || d.W % 4 || d.depth < 1 || d.B < 1 || d.c0 % 8 || d.c1 % 8 ||
+      d.cs % 8 || d.mid % 8 || d.c2 % 8 || d.c0 > 16 * kMaxNp0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      frontend_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int h1 = d.H / 4, w1 = d.W / 4;
+  const int tiles_x = (w1 + p.tw - 1) / p.tw, tiles_y = (h1 + p.th - 1) / p.th;
+  dim3 grid(tiles_x * tiles_y, d.B);
+  frontend_mma_kernel<<<grid, p.threads, p.bytes, (cudaStream_t)stream>>>(
+      img, w, wm, out, d, p, tiles_x, prof);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int frontend_f32(const uint8_t* img, const float* w, float* out,
@@ -440,27 +1003,64 @@ extern "C" int frontend_f32(const uint8_t* img, const float* w, float* out,
   return launch<float>(img, w, out, Dims{B, H, W, c0, c1, cs, mid, depth, c2}, stream);
 }
 
-extern "C" int frontend_bf16(const uint8_t* img, const float* w, void* out,
+extern "C" int frontend_bf16(const uint8_t* img, const float* w, const void* wm, void* out,
                              int B, int H, int W, int c0, int c1, int cs,
                              int mid, int depth, int c2, void* stream) {
-  return launch<__nv_bfloat16>(img, w, static_cast<__nv_bfloat16*>(out),
-                               Dims{B, H, W, c0, c1, cs, mid, depth, c2}, stream);
+  const Dims d{B, H, W, c0, c1, cs, mid, depth, c2};
+  PlanB p;
+  const cudaError_t err = pick_plan_b(d, &p);
+  if (err != cudaSuccess) return (int)err;
+  return launch_mma(img, w, static_cast<const __nv_bfloat16*>(wm),
+                    static_cast<__nv_bfloat16*>(out), d, p, nullptr, stream);
 }
 
-// Packed weight length in floats, so the host can check its buffer.
+// The bf16 kernel with a given tile and block size, for tuning the plan
+// (tools/tune_kernels.py); fails if the tile does not fit. prof: null, or 8
+// counters that receive the clocks of each phase summed over the blocks.
+extern "C" int frontend_bf16_tile(const uint8_t* img, const float* w, const void* wm,
+                                  void* out, int B, int H, int W, int c0, int c1, int cs,
+                                  int mid, int depth, int c2, int th, int tw, int threads,
+                                  unsigned long long* prof, void* stream) {
+  const Dims d{B, H, W, c0, c1, cs, mid, depth, c2};
+  if (th < 1 || tw < 1 || threads < 32 || threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  PlanB p = make_plan_b(d, th, tw);
+  p.threads = threads;
+  return launch_mma(img, w, static_cast<const __nv_bfloat16*>(wm),
+                    static_cast<__nv_bfloat16*>(out), d, p, prof, stream);
+}
+
+// Packed weight lengths, so the host can check its buffers: f32 elements,
+// and bf16 elements of the MMA pack.
 extern "C" int frontend_weight_len(int c0, int c1, int cs, int mid, int depth, int c2) {
   Dims d{0, 0, 0, c0, c1, cs, mid, depth, c2};
   return weight_offsets(d).bout + c2;
 }
 
-// Tile size, shared-memory bytes and block size chosen for these widths.
-extern "C" int frontend_plan(int c0, int c1, int cs, int mid, int depth, int c2,
-                             int* tile, int* smem_bytes, int* threads) {
+extern "C" int frontend_mma_weight_len(int c0, int c1, int cs, int mid, int depth, int c2) {
   Dims d{0, 0, 0, c0, c1, cs, mid, depth, c2};
+  return mma_offsets(d).total;
+}
+
+// Tile, shared-memory bytes and block size chosen for these widths by the
+// bf16 kernel (bf16 != 0) or the f32 kernel.
+extern "C" int frontend_plan(int c0, int c1, int cs, int mid, int depth, int c2, int bf16,
+                             int* tile_h, int* tile_w, int* smem_bytes, int* threads) {
+  Dims d{0, 0, 0, c0, c1, cs, mid, depth, c2};
+  if (bf16) {
+    PlanB p;
+    cudaError_t err = pick_plan_b(d, &p);
+    if (err != cudaSuccess) return (int)err;
+    *tile_h = p.th;
+    *tile_w = p.tw;
+    *smem_bytes = (int)p.bytes;
+    *threads = p.threads;
+    return 0;
+  }
   Plan p;
   cudaError_t err = pick_plan(d, &p);
   if (err != cudaSuccess) return (int)err;
-  *tile = p.t;
+  *tile_h = *tile_w = p.t;
   *smem_bytes = (int)p.bytes;
   *threads = p.threads;
   return 0;

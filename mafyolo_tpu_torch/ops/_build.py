@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` becomes its own shared library with a plain C
 interface, `build/kernels/<name>-<hash>.so` at the repository root (the hash
-covers the source and the flags, so an edited source rebuilds). Nothing is
+covers the source, the headers under csrc/ it includes and the flags, so an
+edited source or header rebuilds). Nothing is
 built at import time: `load(name)` builds at first use, on the machine with
 the card. No PyTorch headers are included, which keeps a build to seconds.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,11 +44,26 @@ def _nvcc() -> str:
     return found
 
 
+def _with_headers(src: Path, seen=None) -> bytes:
+    """The source's bytes followed by those of every `#include "..."` header
+    under csrc/ that it reaches."""
+    seen = set() if seen is None else seen
+    text = src.read_bytes()
+    out = [text]
+    for inc in re.findall(rb'^\s*#include\s+"([^"]+)"', text, re.M):
+        header = CSRC / inc.decode()
+        if header.exists() and header not in seen:
+            seen.add(header)
+            out.append(_with_headers(header, seen))
+    return b"".join(out)
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu (if its hashed library is missing) -> .so path."""
     src = CSRC / f"{name}.cu"
     flags = ARCH_FLAGS + COMMON_FLAGS + EXTRA_FLAGS[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    digest = hashlib.sha256(_with_headers(src) + " ".join(flags).encode())
+    flags = flags + ["-I", str(CSRC)]
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out

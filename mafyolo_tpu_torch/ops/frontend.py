@@ -7,7 +7,11 @@ BGR NHWC bytes as they are. Both versions here take one packed f32 weight
 buffer (`frontend_build`), with /255 and the BGR->RGB flip folded into the
 layer-0 weights as frontend_pallas.py:_w0_blocked does. `frontend_forward`
 runs the plain version on a CPU tensor and the kernel on a CUDA tensor; there
-is no fallback from one to the other.
+is no fallback from one to the other. For bf16 output the kernel runs layers
+0 and 1 and the 1x1 convs on the tensor cores, from a second, bf16 buffer
+(`FrontendWeights.mma`) that holds those weights padded to 16 channels in
+fragment order (`_mma_parts`, ops/_mma_pack.py); for f32 output it computes
+everything in f32 from `flat`.
 """
 from __future__ import annotations
 
@@ -19,11 +23,14 @@ import torch
 import torch.nn.functional as F
 
 from mafyolo_tpu_torch.ops import _build
+from mafyolo_tpu_torch.ops._mma_pack import pack_b, pad16, pad_rows
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_SIG = {"frontend_f32": _ARGS, "frontend_bf16": _ARGS,
+_SIG = {"frontend_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        "frontend_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        "frontend_bf16_tile": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2,
         "frontend_weight_len": [ctypes.c_int] * 6,
-        "frontend_plan": [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3}
+        "frontend_mma_weight_len": [ctypes.c_int] * 6,
+        "frontend_plan": [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 4}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +51,7 @@ class FrontendCfg:
 class FrontendWeights:
     cfg: FrontendCfg
     flat: torch.Tensor   # f32 [n], the order of _layout
+    mma: torch.Tensor    # bf16, the blocks of _mma_parts in fragment order
 
 
 def _layout(cfg: FrontendCfg):
@@ -68,6 +76,26 @@ def _unpack(fw: FrontendWeights):
     return parts
 
 
+def _mma_parts(parts, cfg: FrontendCfg):
+    """[(name, f32 [K, N])]: the weights the bf16 kernel feeds to the tensor
+    cores, in buffer order, as the GEMMs it runs. Every K segment the kernel
+    walks is padded with zero rows to a multiple of 16: layer 0's 27 taps
+    (u, v, ci) as one block, layer 1's 9 taps of c0 rows, and cv_out's
+    2 + depth CSP parts of c_ rows. cv_in's output columns are laid out
+    [a | b] with each half padded to 16, as x2 sits in shared memory. pack_b
+    pads the rest."""
+    c0, c1, c_, mid, depth, c2 = cfg.dims()
+    csp = pad16(c_)
+    win = parts["win"].new_zeros((c1, 2 * csp))
+    win[:, :c_] = parts["win"][:, :c_]
+    win[:, csp:csp + c_] = parts["win"][:, c_:]
+    out = [("w0", parts["w0"].reshape(27, c0)),
+           ("w1", pad_rows(parts["w1"].reshape(9 * c0, c1), [c0] * 9)), ("win", win)]
+    for i in range(depth):
+        out += [(f"wexp{i}", parts[f"wexp{i}"]), (f"wproj{i}", parts[f"wproj{i}"])]
+    return out + [("wout", pad_rows(parts["wout"], [c_] * (2 + depth)))]
+
+
 def frontend_skip_until(specs, save) -> int:
     """2 when layers 0-2 are the RepVGG 3x3/s2 pair + a k=3 RepHDW fed by it
     and nothing else reads layers 0-1 (every MAF graph); -1 otherwise."""
@@ -81,8 +109,8 @@ def frontend_skip_until(specs, save) -> int:
 
 
 def frontend_build(net) -> FrontendWeights:
-    """Deploy GraphNet (its layer0..layer2 modules) -> packed f32 weights on
-    the modules' device."""
+    """Deploy GraphNet (its layer0..layer2 modules) -> packed f32 weights,
+    and the bf16 pack of the tensor-core operands, on the modules' device."""
     l0, l1, l2 = net.layer0.fused.conv, net.layer1.fused.conv, net.layer2
     c_ = l2.c_
     mid = l2.m0.expand.conv.out_channels
@@ -106,7 +134,9 @@ def frontend_build(net) -> FrontendWeights:
                       f"bproj{i}": m.project.conv.bias})
     with torch.no_grad():
         flat = torch.cat([parts[n].float().reshape(-1) for n, _ in _layout(cfg)])
-    return FrontendWeights(cfg, flat.contiguous())
+        mma = torch.cat([pack_b(w) for _, w in _mma_parts(
+            {n: parts[n].float() for n, _ in _layout(cfg)}, cfg)])
+    return FrontendWeights(cfg, flat.contiguous(), mma.contiguous())
 
 
 def frontend_plain(imgs_u8, fw: FrontendWeights, dtype=torch.float32):
@@ -153,15 +183,21 @@ def frontend_forward(imgs_u8, fw: FrontendWeights, dtype=torch.float32):
         raise ValueError(f"frontend_forward: dtype {dtype} not supported")
     if fw.flat.device != imgs_u8.device or fw.flat.dtype != torch.float32:
         raise ValueError("frontend_forward: weights must be f32 on the input's device")
+    if fw.mma.device != imgs_u8.device or fw.mma.dtype != torch.bfloat16:
+        raise ValueError("frontend_forward: the MMA pack must be bf16 on the input's device")
     lib = _build.load("frontend", _SIG)
-    if lib.frontend_weight_len(*fw.cfg.dims()) != fw.flat.numel():
+    if lib.frontend_weight_len(*fw.cfg.dims()) != fw.flat.numel() \
+            or lib.frontend_mma_weight_len(*fw.cfg.dims()) != fw.mma.numel():
         raise ValueError("frontend_forward: packed weight length mismatch")
     imgs_u8 = imgs_u8.contiguous()
     out = torch.empty((b, h // 4, w // 4, fw.cfg.c2), dtype=dtype,
                       device=imgs_u8.device)
-    fn = lib.frontend_f32 if dtype == torch.float32 else lib.frontend_bf16
-    err = fn(imgs_u8.data_ptr(), fw.flat.data_ptr(), out.data_ptr(), b, h, w,
-             *fw.cfg.dims(), torch.cuda.current_stream(imgs_u8.device).cuda_stream)
+    tail = (b, h, w, *fw.cfg.dims(), torch.cuda.current_stream(imgs_u8.device).cuda_stream)
+    if dtype == torch.float32:
+        err = lib.frontend_f32(imgs_u8.data_ptr(), fw.flat.data_ptr(), out.data_ptr(), *tail)
+    else:
+        err = lib.frontend_bf16(imgs_u8.data_ptr(), fw.flat.data_ptr(), fw.mma.data_ptr(),
+                                out.data_ptr(), *tail)
     _build.check(lib, err, "frontend kernel")
     frontend_forward.launches += 1
     return out
@@ -170,11 +206,11 @@ def frontend_forward(imgs_u8, fw: FrontendWeights, dtype=torch.float32):
 frontend_forward.launches = 0
 
 
-def frontend_plan(fw: FrontendWeights):
-    """(tile, shared-memory bytes, threads per block) the kernel picks for
-    these widths on the current card."""
+def frontend_plan(fw: FrontendWeights, dtype=torch.bfloat16):
+    """(tile rows, tile columns, shared-memory bytes, threads per block) the
+    kernel of `dtype` picks for these widths on the current card."""
     lib = _build.load("frontend", _SIG)
-    out = [ctypes.c_int() for _ in range(3)]
-    _build.check(lib, lib.frontend_plan(*fw.cfg.dims(), *map(ctypes.byref, out)),
-                 "frontend_plan")
+    out = [ctypes.c_int() for _ in range(4)]
+    _build.check(lib, lib.frontend_plan(*fw.cfg.dims(), int(dtype == torch.bfloat16),
+                                        *map(ctypes.byref, out)), "frontend_plan")
     return tuple(v.value for v in out)

@@ -13,7 +13,9 @@ materialises either Concat; the CSP parts keep the port's order [a, b, y0..]
 with the bottlenecks chained on the second half (models/blocks.py:RepHDW),
 not the JAX kernel's b-first layout. `neck80_forward` runs the plain version
 on CPU tensors and the kernel on CUDA tensors; there is no fallback from one
-to the other.
+to the other. In bf16 the kernel runs its 1x1 convs on the tensor cores from
+a second, bf16 buffer (`Neck80Weights.mma`: each GEMM's [K, N] weight in
+fragment order, ops/_mma_pack.py); in f32 it computes everything from `flat`.
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from mafyolo_tpu_torch.ops import _build
+from mafyolo_tpu_torch.ops._mma_pack import pack_b
 
-_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 _SIG = {"neck80_f32": _ARGS, "neck80_bf16": _ARGS,
         "neck80_weight_len": [ctypes.c_int] * 11}
 
@@ -56,6 +59,7 @@ class Neck80Cfg:
 class Neck80Weights:
     cfg: Neck80Cfg
     flat: torch.Tensor   # f32 [n], the order of _layout
+    mma: torch.Tensor    # bf16: the GEMM weights of _mma_names in fragment order
 
 
 def neck80_supported(specs) -> bool:
@@ -101,6 +105,19 @@ def _layout(cfg: Neck80Cfg):
                             cfg.c22))
 
 
+def _mma_names(cfg: Neck80Cfg):
+    """Names of the 1x1 weights in the order the kernel launches its GEMMs."""
+    return [name for name, shape in _layout(cfg)
+            if len(shape) == 2 and "wdw" not in name]
+
+
+def _mma_ok(cfg: Neck80Cfg) -> bool:
+    """Whether the tensor-core GEMMs take these widths: K in tiles of 16,
+    output columns in interleaved groups of 32 (every MAF width does)."""
+    return not (any(c % 16 for c in cfg.cins)
+                or any(c % 32 for c in (cfg.c1_, cfg.mid1, cfg.c20, cfg.c2_, cfg.mid2, cfg.c22)))
+
+
 def _unpack(nw: Neck80Weights):
     parts, off = {}, 0
     for name, shape in _layout(nw.cfg):
@@ -136,7 +153,12 @@ def neck80_build(net, cfg: Neck80Cfg) -> Neck80Weights:
                 raise ValueError(f"neck80_build: {name} is {tuple(parts[name].shape)}, "
                                  f"the config wants {shape}")
         flat = torch.cat([parts[n].float().reshape(-1) for n, _ in layout])
-    return Neck80Weights(cfg, flat.contiguous())
+        # interleaved columns: the GEMM then stores 16 bytes a lane; widths
+        # it does not take get no pack, and bf16 then raises
+        mma = torch.cat([pack_b(parts[n].float(), interleave=True)
+                         for n in _mma_names(cfg)]) if _mma_ok(cfg) \
+            else flat.new_empty(0, dtype=torch.bfloat16)
+    return Neck80Weights(cfg, flat.contiguous(), mma.contiguous())
 
 
 def neck80_plain(x18, x4, x17u, nw: Neck80Weights, dtype=torch.float32):
@@ -167,7 +189,9 @@ def neck80_plain(x18, x4, x17u, nw: Neck80Weights, dtype=torch.float32):
 def neck80_forward(x18, x4, x17u, nw: Neck80Weights, dtype=torch.float32):
     """Layers 19-22 of the deploy graph: NHWC [B,h,h,C_i] sources ->
     (y20 [B,h,h,c20], y22 [B,h,h,c22]) in `dtype`, f32 or bf16; the kernel
-    computes in f32 and keeps its intermediates in `dtype`."""
+    accumulates in f32 and keeps its intermediates in `dtype` (bf16: bf16
+    operands on the tensor cores; source widths in multiples of 16, the
+    others of 32)."""
     xs = (x18, x4, x17u)
     cfg = nw.cfg
     b = x18.shape[0]
@@ -185,10 +209,17 @@ def neck80_forward(x18, x4, x17u, nw: Neck80Weights, dtype=torch.float32):
         raise RuntimeError(f"neck80_forward: unsupported device {x18.device}")
     dev = x18.device
     if any(x.device != dev for x in xs) or nw.flat.device != dev \
-            or nw.flat.dtype != torch.float32:
-        raise ValueError("neck80_forward: sources and f32 weights must share one device")
+            or nw.flat.dtype != torch.float32 or nw.mma.device != dev \
+            or nw.mma.dtype != torch.bfloat16:
+        raise ValueError("neck80_forward: sources, f32 weights and the bf16 MMA pack "
+                         "must share one device")
+    if dtype == torch.bfloat16 and not _mma_ok(cfg):
+        raise ValueError("neck80_forward: bf16 wants source widths in multiples of 16 "
+                         f"and the others of 32, got {cfg}")
     lib = _build.load("neck80", _SIG)
-    if lib.neck80_weight_len(*cfg.dims()) != nw.flat.numel():
+    if lib.neck80_weight_len(*cfg.dims()) != nw.flat.numel() \
+            or (_mma_ok(cfg) and sum(math.prod(s) for n, s in _layout(cfg)
+                                     if n in _mma_names(cfg)) != nw.mma.numel()):
         raise ValueError("neck80_forward: packed weight length mismatch")
     xs = [x.to(dtype).contiguous() for x in xs]
     p = b * cfg.h * cfg.h
@@ -201,7 +232,7 @@ def neck80_forward(x18, x4, x17u, nw: Neck80Weights, dtype=torch.float32):
     bufs = (y20, y22, scratch((2 + cfg.d1) * cfg.c1_), scratch((2 + cfg.d2) * cfg.c2_),
             scratch(max(cfg.mid1, cfg.mid2)), scratch(max(cfg.mid1, cfg.mid2)))
     fn = lib.neck80_f32 if dtype == torch.float32 else lib.neck80_bf16
-    err = fn(*(x.data_ptr() for x in xs), nw.flat.data_ptr(),
+    err = fn(*(x.data_ptr() for x in xs), nw.flat.data_ptr(), nw.mma.data_ptr(),
              *(t.data_ptr() for t in bufs), b, cfg.h, cfg.h, *cfg.dims(),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "neck80 kernel")

@@ -14,6 +14,7 @@ import torch
 from mafyolo_tpu.models import build_model as jax_build_model
 from mafyolo_tpu.ops import frontend_pallas as JF
 from mafyolo_tpu_torch.ops import frontend as F
+from mafyolo_tpu_torch.ops._mma_pack import pad16, unpack_b
 from tests.test_frontend_pallas import _xla_frontend
 from torch_common import port_model, random_folded, to_jax, u8_images
 
@@ -75,3 +76,45 @@ def test_frontend_dispatch_and_layout(n_weights):
                                        random_folded("maf-yolo-s", 7)).net)
     assert s_fw.cfg.dims() == (32, 64, 32, 96, 2, 64)
 
+
+@pytest.mark.parametrize("name", ["maf-yolo-n", "maf-yolo-s", "maf-yolo-m"])
+def test_mma_pack_round_trips(name):
+    """The bf16 tensor-core pack holds exactly the bf16 cast of the f32
+    parts: layer 0's 27 tap rows as one block, layer 1's rows one 16-padded
+    block per tap, cv_in's columns as
+    [a | b] halves padded to 16, cv_out's rows one padded block per CSP
+    part; every pad row and column is zero."""
+    fw = F.frontend_build(port_model(name, 7, random_folded(name, 7, seed=5)).net)
+    c0, c1, c_, mid, depth, c2 = fw.cfg.dims()
+    parts = F._unpack(fw)
+    c0p, csp = pad16(c0), pad16(c_)
+    shapes = [("w0", 27, c0), ("w1", 9 * c0p, c1), ("win", c1, 2 * csp)]
+    for i in range(depth):
+        shapes += [(f"wexp{i}", c_, mid), (f"wproj{i}", mid, c_)]
+    shapes.append(("wout", (2 + depth) * csp, c2))
+    got, off = {}, 0
+    for key, k, n in shapes:
+        size = pad16(k) * pad16(n)
+        got[key] = unpack_b(fw.mma[off:off + size], k, n).float()
+        off += size
+    assert off == fw.mma.numel() and fw.mma.dtype == torch.bfloat16
+
+    def same(block, want):       # the block is `want` in bf16, zero beyond it
+        k, n = want.shape
+        ref = torch.zeros_like(block)
+        ref[:k, :n] = want.bfloat16().float()
+        assert torch.equal(block, ref)
+
+    same(got["w0"], parts["w0"].reshape(27, c0))
+    for t in range(9):
+        same(got["w1"][t * c0p:(t + 1) * c0p], parts["w1"].reshape(9, c0, c1)[t])
+    same(got["win"][:, :csp], parts["win"][:, :c_])
+    same(got["win"][:, csp:2 * csp], parts["win"][:, c_:])
+    assert not got["win"][:, 2 * csp:].any()
+    for i in range(depth):
+        same(got[f"wexp{i}"], parts[f"wexp{i}"])
+        same(got[f"wproj{i}"], parts[f"wproj{i}"])
+    for j in range(2 + depth):
+        same(got["wout"][j * csp:(j + 1) * csp], parts["wout"][j * c_:(j + 1) * c_])
+    assert not got["wout"][(2 + depth) * csp:].any()
+    assert any(v.std() > 1e-3 for v in got.values())

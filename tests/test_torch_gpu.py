@@ -22,14 +22,35 @@ from torch_common import cuda_device, port_model, random_folded, u8_images  # no
 pytestmark = pytest.mark.gpu
 
 
+def _frontend_weights(name, device, big_bias):
+    """Packed layers 0-2; big_bias puts every conv bias in U(0.2, 1)."""
+    model = port_model(name, 7, random_folded(name, 7, seed=3)).to(device)
+    if big_bias:
+        gen = torch.Generator(device=device).manual_seed(11)
+        for layer in (model.net.layer0, model.net.layer1, model.net.layer2):
+            for m in layer.modules():
+                if isinstance(m, nn.Conv2d):
+                    m.bias.data = torch.rand(m.bias.shape, generator=gen,
+                                             device=device) * 0.8 + 0.2
+    return F.frontend_build(model.net)
+
+
+@pytest.mark.parametrize("big_bias", [False, True])
 @pytest.mark.parametrize("name,hw", [("maf-yolo-n", (256, 64)),
                                      ("maf-yolo-s", (128, 128)),
-                                     ("maf-yolo-m", (128, 64))])
-def test_frontend_kernel_matches_plain(cuda_device, name, hw):
-    """f32 at 1e-3 (summation order); bf16 output at the JAX kernel tests'
-    tolerance. Random biases are nonzero, 256 rows span several tiles."""
-    folded = random_folded(name, 7, seed=3)
-    fw = F.frontend_build(port_model(name, 7, folded).to(cuda_device).net)
+                                     ("maf-yolo-m", (128, 64)),
+                                     ("maf-yolo-n", (200, 168)),
+                                     ("maf-yolo-s", (200, 168)),
+                                     ("maf-yolo-m", (200, 168)),
+                                     ("maf-yolo-m", (72, 264))])
+def test_frontend_kernel_matches_plain(cuda_device, name, hw, big_bias):
+    """f32 at 1e-3 (summation order); bf16 (tensor-core kernel: bf16
+    operands and staging, f32 accumulation) at the JAX kernel tests'
+    tolerance. Random biases are nonzero, and in U(0.2, 1) with big_bias, so
+    a halo pixel that leaked past a zero-padding mask would show; 256 rows
+    span several tiles, and no tile of the bf16 plan (16 x 16 or 8 x 16)
+    divides 200x168 (H/4 = 50, W/4 = 42) or 72x264 (18, 66)."""
+    fw = _frontend_weights(name, cuda_device, big_bias)
     imgs = torch.from_numpy(u8_images(1, (2, *hw, 3))).to(cuda_device)
     before = F.frontend_forward.launches
     want = F.frontend_plain(imgs, fw)
@@ -143,8 +164,9 @@ def _neck(name, h, device):
 @pytest.mark.parametrize("name", ["maf-yolo-n", "maf-yolo-s", "maf-yolo-m"])
 @pytest.mark.parametrize("h", [16, 20, 80])
 def test_neck_kernel_matches_plain(cuda_device, name, h):
-    """f32 at 1e-3; bf16 (inputs, intermediates and outputs in bf16) at the
-    JAX kernel tests' tolerance against the f32 plain version."""
+    """f32 at 1e-3; bf16 (tensor-core GEMMs on bf16 inputs, intermediates
+    and outputs, f32 accumulation) at the JAX kernel tests' tolerance against
+    the f32 plain version. h = 20 leaves a ragged last 256-pixel block."""
     nw, xs = _neck(name, h, cuda_device)
     before = N.neck80_forward.launches
     want = N.neck80_plain(*xs, nw)

@@ -46,3 +46,13 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert '"ok": true' not in proc.stdout
+
+
+def test_evaler_defaults_to_the_card():
+    """The serving entry point asks for the card unless the caller names
+    another device; the CPU tests pass device="cpu"."""
+    import torch
+
+    from mafyolo_tpu_torch.core.evaler import Evaler
+    assert Evaler().device == torch.device("cuda")
+    assert Evaler(device="cpu").device == torch.device("cpu")

@@ -17,6 +17,7 @@ import torch
 from mafyolo_tpu.models import build_model as jax_build_model
 from mafyolo_tpu.ops import neck_pallas as JN
 from mafyolo_tpu_torch.ops import neck as N
+from mafyolo_tpu_torch.ops._mma_pack import unpack_b
 from tests.test_neck_pallas import _xla_cluster
 from torch_common import port_model, port_specs, random_folded, to_jax
 
@@ -139,3 +140,25 @@ def test_neck_layout_dispatch_and_model_layers(weights):
         N.neck80_forward(xs[1], xs[0], xs[2], nw)
     with pytest.raises(ValueError, match="f32 or bf16"):
         N.neck80_forward(*(x.double() for x in xs), nw)
+
+
+@pytest.mark.parametrize("name", ["maf-yolo-n", "maf-yolo-s", "maf-yolo-m"])
+def test_mma_pack_round_trips(name):
+    """The bf16 tensor-core pack holds, GEMM by GEMM in launch order, exactly
+    the bf16 cast of the f32 1x1 weights (every width of N, S and M is a
+    multiple of 16, so nothing is padded, and every output width one of 32,
+    so the columns are interleaved); the DW weights stay f32 only."""
+    model = port_model(name, 7, random_folded(name, 7, seed=9))
+    cfg = N.neck80_cfg(model.specs, 16)
+    nw = N.neck80_build(model.net, cfg)
+    parts, names = N._unpack(nw), N._mma_names(cfg)
+    assert len(names) == 2 * (2 + 2 * cfg.d1) and N._mma_ok(cfg)
+    assert all(n.split(".")[1].startswith("w") and "wdw" not in n for n in names)
+    off = 0
+    for n in names:
+        k, cols = parts[n].shape
+        assert k % 16 == 0 and cols % 32 == 0
+        got = unpack_b(nw.mma[off:off + k * cols], k, cols, interleave=True)
+        assert torch.equal(got, parts[n].bfloat16())
+        off += k * cols
+    assert off == nw.mma.numel() and nw.mma.dtype == torch.bfloat16

@@ -53,7 +53,7 @@ def _jax_predict(name, folded, imgs):
 
 
 def _both_predict(folded, imgs):
-    ev = Evaler(half=False)
+    ev = Evaler(half=False, device="cpu")
     ev.init_model("maf-yolo-n", folded, nc=7, folded=True)
     assert ev.fe_skip == 2
     got = {k: v.numpy() for k, v in ev.predict(imgs).items()}
@@ -98,7 +98,7 @@ def test_s_stem_route_matches_jax_evaler():
 
 
 def test_train_form_raises_and_scale_coords():
-    ev = Evaler(half=False)
+    ev = Evaler(half=False, device="cpu")
     # train-form weights are folded first; a tree without them cannot be
     with pytest.raises(KeyError, match="params"):
         ev.init_model("maf-yolo-n", {}, nc=7, folded=False)

@@ -121,7 +121,7 @@ def test_evaler_folds_train_form_weights():
     specs = build_model(TINY_GRAPH, nc=NC).specs
     variables = random_train_variables(specs, seed=9)
     imgs = np.random.default_rng(3).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
-    a, b = Evaler(half=False), Evaler(half=False)
+    a, b = Evaler(half=False, device="cpu"), Evaler(half=False, device="cpu")
     a.init_model(TINY_GRAPH, variables, nc=NC, folded=False)
     b.init_model(TINY_GRAPH, jax.tree.map(np.asarray, jax_fold_variables(specs, variables)),
                  nc=NC, folded=True)

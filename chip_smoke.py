@@ -12,11 +12,15 @@ Phases, in order; any failure exits non-zero without a result line:
                 (N bs4@640, S and M bs2@640, a 256x64 N batch, and 200x168
                 batches of N, S and M, whose H/4 = 50 and W/4 = 42 no tile
                 divides; f32 and bf16);
-  4. nms        the greedy-NMS kernel against its plain version (B=32,
-                M=512 and M=2000), keep sets exactly equal;
+  4. nms        the greedy-NMS kernel against its plain version, keep sets
+                exactly equal: B=32 at M=512 and M=2000, B=8 at M = 1, 63, 64,
+                65, 256, 512 and 2000, an image with no valid box, identical
+                boxes, a suppression chain and pairs at the threshold;
   5. dw_grad    the depthwise weight-gradient kernel against its plain
                 version at every (C, H, k) of N's train graph at B=2, plus a
-                dilation-2 case and odd sizes; f32 and bf16;
+                dilation-2 case, C of 1, 33 and 72 on 37x23 and 1x1 images
+                and paddings that make Ho != H; f32 and bf16, twice for the
+                bits; a launch over the block's shared memory must raise;
   6. stem       the stem kernel against its plain version for N, S and M
                 weights at bs2@640 and at 2x66x130 (odd H/2 and W/2 tails);
   7. slice      MAF-YOLO-N deploy Evaler.predict in bf16, bs32 uint8 @640,
@@ -29,7 +33,9 @@ Phases, in order; any failure exits non-zero without a result line:
                 layer-20 input of N's bs32@640 forward; the plain version
                 against the model's own layers 19-22;
   9. timings    CUDA-event times: N e2e img/s and p50 batch latency at
-                bs32@640 and each kernel beside its plain version; the
+                bs32@640, its decode + NMS stage split into parts, and each
+                kernel beside its plain version (NMS also on the candidates
+                of a real predict, and replayed from a CUDA graph); the
                 front-end kernel for N, S and M at bs32@640 in bf16 beside the
                 deploy model's own layers 0-2 (bf16 cuDNN, flip, cast and /255
                 included);
@@ -61,7 +67,8 @@ Phases, in order; any failure exits non-zero without a result line:
                 kernel against its plain version at every DW site at B=32
                 (values and determinism), and the summed dk time per step,
                 kernel against plain and against aten's convolution_backward
-                (weight gradient only).
+                (weight gradient only), by eager calls and from a CUDA graph,
+                split by class of site (H, k).
 Each entry of the "kernels" line carries bound_ms, the least time the card
 could take: the larger of the bytes moved (inputs read once, outputs written
 once) over 3.35 TB/s and the operations over the peak rate of the operand
@@ -94,12 +101,17 @@ def check(cond, msg):
         fail(msg)
 
 
+T0 = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line; "t" is the seconds since the script started."""
+    print(json.dumps({**kw, "t": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # H100 SXM data sheet, dense
+SM_CLOCK_HZ, SMEM_ROUND_TRIP_CLOCKS = 1.755e9, 33   # boost clock; a dependent shared load
 
 
 def bound(nbytes, flops, kind):
@@ -162,27 +174,6 @@ def tensor_core_check(paths):
         check(hmma + hgmma > 0, f"{name}: no HMMA or HGMMA instruction in its SASS")
 
 
-def dw_sites(model, img, device):
-    """[(C, H, W, k, pad, dilation)] of every depthwise conv of a train-form
-    model at img x img, read from one forward (a dw_grad launch each per
-    backward)."""
-    import torch
-    from mafyolo_tpu_torch.models.blocks import DWConv
-    sites, hooks = [], []
-    for m in model.modules():
-        if isinstance(m, DWConv):
-            k = m.weight.shape[-1]
-            hooks.append(m.register_forward_hook(
-                lambda mod, a, o, k=k: sites.append(
-                    (a[0].shape[1], a[0].shape[2], a[0].shape[3], k, mod.pad,
-                     mod.dilation))))
-    with torch.no_grad():
-        model.eval()(torch.zeros(1, img, img, 3, device=device))
-    for h in hooks:
-        h.remove()
-    return sites
-
-
 def train_batch(seed, b, img, device, max_boxes=120):
     """uint8 BGR images [b,img,img,3] and padded targets [b,max_boxes,5]
     (1-30 boxes per image: cls, cx, cy, w, h normalized; pad rows cls -1),
@@ -205,23 +196,30 @@ def train_batch(seed, b, img, device, max_boxes=120):
 
 def dw_grad_phase(dev):
     """Phase 5: the dw_grad kernel against its plain version at every DW site
-    of N's train graph at B=2, a dilation-2 k9 case at H=20 and an odd size;
-    f32 and bf16. Returns the largest error."""
+    of N's train graph at B=2, the dilation-2 k9 case at H=20, C of 1, 33 and
+    72 on 37x23 and 1x1 images, and paddings other than (k-1)d/2 (Ho != H);
+    f32 and bf16, twice for the bits. A launch that asks for more shared
+    memory than a block may have must raise. Returns the largest error."""
     import torch
 
     from mafyolo_tpu_torch.models import build_model
     from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.utils.sample import dw_sites
     cl = torch.channels_last
     torch.manual_seed(0)
     sites = dw_sites(build_model("maf-yolo-n", nc=NC).to(dev).to(memory_format=cl), IMG, dev)
-    cases = sorted(set(sites)) + [(64, 20, 20, 9, 8, 2), (48, 37, 23, 5, 2, 1)]
+    cases = sorted(set(sites)) + [
+        (64, 20, 20, 9, 8, 2), (48, 37, 23, 5, 2, 1), (1, 37, 23, 5, 2, 1), (33, 37, 23, 3, 1, 1),
+        (72, 37, 23, 9, 4, 1), (72, 1, 1, 3, 1, 1), (33, 1, 1, 1, 0, 1), (72, 37, 23, 7, 3, 1),
+        (40, 26, 31, 3, 0, 1), (40, 26, 31, 5, 4, 1), (40, 26, 31, 1, 2, 1), (40, 26, 31, 9, 2, 1)]
     dk_err = 0.0
     for c, h, w, k, pad, dil in cases:
+        ho, wo = h + 2 * pad - dil * (k - 1), w + 2 * pad - dil * (k - 1)
         gen = torch.Generator(device=dev).manual_seed(c * 1000 + h * 10 + k)
         # an offset keeps x nonzero at every border
         x32 = (torch.randn((2, c, h, w), generator=gen, device=dev) + 0.5) \
             .contiguous(memory_format=cl)
-        g32 = torch.randn((2, c, h, w), generator=gen, device=dev).contiguous(memory_format=cl)
+        g32 = torch.randn((2, c, ho, wo), generator=gen, device=dev).contiguous(memory_format=cl)
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
             x, g = x32.to(dt), g32.to(dt)
@@ -231,76 +229,28 @@ def dw_grad_phase(dev):
             err = (got - want).abs().max().item()
             bound = 1e-3 * want.abs().max().item()
             errs[str(dt).split(".")[1]] = (err, bound)
-            check(err <= bound, f"dw_grad kernel vs plain {dt} C{c} H{h} W{w} k{k} d{dil}: "
+            check(err <= bound, f"dw_grad kernel vs plain {dt} C{c} H{h} W{w} k{k} p{pad} d{dil}: "
                                 f"{err} > {bound}")
             check(torch.equal(got, again), f"dw_grad not deterministic C{c} H{h} k{k}")
             dk_err = max(dk_err, err)
-        emit(phase="dw_grad_check", c=c, h=h, w=w, k=k, dilation=dil, batch=2,
+        cut = DG.plan(2, c, ho, wo, k, pad, dil, 2, DG._sms(dev.index))
+        emit(phase="dw_grad_check", c=c, h=h, w=w, k=k, pad=pad, dilation=dil, batch=2,
+             cut_bf16=cut._asdict(),
              max_abs_err_f32=errs["float32"][0], bound_f32=errs["float32"][1],
              max_abs_err_bf16=errs["bfloat16"][0], bound_bf16=errs["bfloat16"][1],
              tolerance="1e-3 * max|plain| for both; bf16 inputs are the same "
                        "numbers for both versions, each accumulates in f32")
-    emit(phase="dw_grad_sites", sites=len(sites), distinct=len(set(sites)))
+    # k = 9 at dilation 25 stages at least 201 x 210 x 32 f32 values: over
+    # the block's shared memory, and the wrapper must raise, not fall back
+    x = torch.zeros((1, 8, 200, 200), device=dev).contiguous(memory_format=cl)
+    try:
+        DG.dw_grad(x, x, 9, 100, 25)
+    except RuntimeError as e:
+        emit(phase="dw_grad_too_large", raised=str(e)[:120])
+    else:
+        fail("dw_grad: a launch over the block's shared memory did not raise")
+    emit(phase="dw_grad_sites", sites=len(sites), distinct=len(set(sites)), cases=len(cases))
     return dk_err
-
-
-def images(seed, b, h=IMG, w=IMG):
-    """uint8 BGR images [b,h,w,3] from a seed, on the CPU."""
-    import numpy as np
-    import torch
-    return torch.from_numpy(np.random.default_rng(seed).integers(
-        0, 256, (b, h, w, 3), dtype=np.uint8))
-
-
-def evaler(name, folded, half, device):
-    from mafyolo_tpu_torch.core.evaler import Evaler
-    ev = Evaler(half=half, device=device)
-    ev.init_model(name, folded, nc=NC, folded=True)
-    return ev
-
-
-def random_deploy(name, dev):
-    """Random folded weights (seed 0, gain 1.5) whose heads give detections.
-
-    Gain 1.5 keeps activations image-dependent through the 34 layers. Random
-    heads are not peaky: an anchor whose feature is large lights up many
-    classes, and one anchor with more than two classes above threshold sends
-    its whole batch to the dense path (nms.py's fast-path condition). So each
-    head level keeps two live classes (2l, 2l+1); their cls_pred rows are
-    recentred and scaled, logit' = a*(W f - mu_c) + c, from 4 calibration
-    images, so that about 150 pairs per image clear conf 0.03. Returns the
-    tree and the conf at which about 2500 pairs per image pass, which
-    overflows compact_k = 512. The other classes get a zero kernel and a bias
-    of -30, and never fire."""
-    import numpy as np
-    import torch
-
-    from mafyolo_tpu_torch.models.graph import parse_graph
-    from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
-    from mafyolo_tpu_torch.utils.bridge import random_folded_variables
-    specs, _, head_layers = parse_graph(MODEL_ZOO[name], nc=NC)
-    folded = random_folded_variables(specs, seed=0, weight_gain=1.5)
-    net = folded["params"]["net"]
-    cal = evaler(name, folded, False, dev).forward(images(10, 4).to(dev))
-    live = []
-    for lvl, (i, o) in enumerate(zip(head_layers, cal)):
-        cls = list(range(2 * lvl, 2 * lvl + 2))
-        zl = torch.logit(o[1].double().clamp(1e-12, 1 - 1e-12)).reshape(4, -1, NC)[..., cls]
-        zl = zl - torch.from_numpy(net[f"layer{i}"]["cls_pred"]["bias"][cls]).to(dev)
-        mu = zl.mean((0, 1))
-        live.append((i, cls, mu, zl - mu))
-    a = 2.5 / torch.cat([d.flatten() for *_, d in live]).std().item()
-    q = (a * torch.cat([d.flatten() for *_, d in live])).sort(descending=True).values
-    c = float(np.log(0.03 / 0.97)) - q[150 * 4].item()
-    thr_over = float(1 / (1 + np.exp(-(q[2500 * 4].item() + c))))
-    for i, cls, mu, _ in live:
-        pred = net[f"layer{i}"]["cls_pred"]
-        bias = np.full(NC, -30.0, np.float32)
-        bias[cls] = c - a * mu.cpu().numpy()
-        kernel = np.zeros_like(pred["kernel"])
-        kernel[..., cls] = pred["kernel"][..., cls] * a
-        pred["kernel"], pred["bias"] = kernel, bias
-    return folded, thr_over
 
 
 def stem_route(name, folded, half, dev):
@@ -325,6 +275,53 @@ def stem_route(name, folded, half, dev):
             return fused_decode_nms(stem_apply(model, sw, imgs), strides=model.strides,
                                     reg_max=model.reg_max)
     return model, sw, predict
+
+
+def decode_nms_split(heads, iters=10):
+    """Mean CUDA-event ms of each part of fused_decode_nms(heads) on its fast
+    path, in stage order, without touching the stage's code: events are
+    recorded around the stage, around the one Tensor.item() it makes (its
+    host sync), at the entry of its final select and around the NMS wrapper.
+    A part's time includes the gaps in which the card waits for the host to
+    launch that part's small kernels."""
+    import torch
+
+    from mafyolo_tpu_torch.ops import nms as NMS
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1][name] = ev
+
+    def wrap(fn, before, after=None):
+        def run(*a, **kw):
+            mark(before)
+            out = fn(*a, **kw)
+            if after:
+                mark(after)
+            return out
+        return run
+
+    real = (NMS.greedy_nms, NMS._blocked_greedy_select, torch.Tensor.item)
+    NMS.greedy_nms = wrap(real[0], "nms_in", "nms_out")
+    NMS._blocked_greedy_select = wrap(real[1], "select_in")
+    torch.Tensor.item = wrap(real[2], "sync_in", "sync_out")
+    try:
+        for i in range(iters + 2):
+            marks.append({})
+            mark("start")
+            NMS.fused_decode_nms(heads)
+            mark("end")
+    finally:
+        NMS.greedy_nms, NMS._blocked_greedy_select, torch.Tensor.item = real
+    torch.cuda.synchronize()
+    parts = {"compaction_top2_ms": ("start", "sync_in"), "host_sync_ms": ("sync_in", "sync_out"),
+             "sort_dfl_decode_ms": ("sync_out", "select_in"), "nms_kernel_ms": ("nms_in", "nms_out"),
+             "select_before_nms_ms": ("select_in", "nms_in"), "final_select_ms": ("nms_out", "end"),
+             "total_ms": ("start", "end")}
+    return {k: sum(m[a].elapsed_time(m[b]) for m in marks[2:]) / iters
+            for k, (a, b) in parts.items()}
 
 
 def match(ref, got, min_score):
@@ -381,6 +378,7 @@ def stem_phase(dev):
 
     from mafyolo_tpu_torch.ops import stem as S
     from mafyolo_tpu_torch.utils.bridge import random_folded_variables
+    from mafyolo_tpu_torch.utils.sample import evaler, images
     worst = 0.0
     for name in ("maf-yolo-n", "maf-yolo-s", "maf-yolo-m"):
         folded = random_folded_variables(parse_graph(MODEL_ZOO[name], nc=NC)[0], seed=1)
@@ -490,8 +488,11 @@ def main():
     from mafyolo_tpu_torch.ops import greedy_nms as G
     from mafyolo_tpu_torch.ops import neck as N
     from mafyolo_tpu_torch.ops.nms import fused_decode_nms
+    from mafyolo_tpu_torch.utils import nms_cases as CASES
     from mafyolo_tpu_torch.utils.bridge import random_folded_variables
-    from mafyolo_tpu_torch.utils.timing import cuda_ms
+    from mafyolo_tpu_torch.utils.sample import (capture_nms_inputs, evaler, images,
+                                                random_boxes, random_deploy)
+    from mafyolo_tpu_torch.utils.timing import cuda_ms, graph_ms
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -549,21 +550,34 @@ def main():
         fe_err[name] = max(fe_err.get(name, 0.0), e16)
     del fe_w
 
-    # ---- 4. NMS kernel vs plain
+    # ---- 4. NMS kernel vs plain: the two timing inputs at B = 32, then M
+    # around the 64-box word at B = 8 and the named corner cases
     rng = np.random.default_rng(3)
-    nms_inputs, nms_err = {}, 0.0
-    for m in (512, 2000):
-        xy = rng.uniform(0, 400, (BATCH, m, 2)).astype(np.float32)
-        boxes = np.concatenate([xy, xy + rng.uniform(10, 120, (BATCH, m, 2))], -1)
-        bt = torch.from_numpy(boxes.astype(np.float32)).to(dev)
-        vt = torch.from_numpy(rng.uniform(0, 1, (BATCH, m)) > 0.1).to(dev)
-        got, want = G.greedy_nms(bt, vt, 0.65), G.greedy_nms_plain(bt, vt, 0.65)
+    nms_inputs, nms_err = {}, 0.0     # the largest |keep - plain keep| over every gate
+
+    def nms_gate(tag, bt, vt, thr):
+        nonlocal nms_err
+        got, want = G.greedy_nms(bt, vt, thr), G.greedy_nms_plain(bt, vt, thr)
         mismatch = int((got != want).sum().item())
         nms_err = max(nms_err, (got.float() - want.float()).abs().max().item())
-        emit(phase="nms_check", m=m, batch=BATCH, kept=int(want.sum().item()),
-             valid=int(vt.sum().item()), mismatches=mismatch)
-        check(mismatch == 0, f"greedy_nms kernel keep set differs at M={m}: {mismatch}")
+        emit(phase="nms_check", case=tag, m=bt.shape[1], batch=bt.shape[0],
+             kept=int(want.sum().item()), valid=int(vt.sum().item()), mismatches=mismatch)
+        check(mismatch == 0, f"greedy_nms kernel keep set differs at {tag}: {mismatch}")
+        return got
+
+    for m in (512, 2000):
+        boxes, valid = random_boxes(rng, BATCH, m)
+        bt, vt = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+        nms_gate(f"random M={m}", bt, vt, 0.65)
         nms_inputs[m] = (bt, vt)
+    for m in CASES.SIZES:
+        boxes, valid = CASES.random_boxes(m, 8, m)
+        nms_gate(f"dense M={m}", torch.from_numpy(boxes).to(dev),
+                 torch.from_numpy(valid).to(dev), 0.65)
+    for case in CASES.CORNER_CASES:
+        boxes, valid, thr = CASES.corner_case(case)
+        got = nms_gate(case, torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev), thr)
+        check(CASES.expected(case, got.cpu().numpy()), f"greedy_nms kernel: wrong keep set at {case}")
 
     # ---- 5. dw_grad kernel vs plain
     dk_err = dw_grad_phase(dev)
@@ -655,6 +669,7 @@ def main():
     }
     emit(phase="timing_e2e", model="maf-yolo-n", dtype="bf16", batch=BATCH, img=IMG,
          img_per_s=img_s, batch_ms_mean=e2e_ms, p50_batch_ms=p50, p90_batch_ms=p90, **stage)
+    emit(phase="timing_decode_nms", model="maf-yolo-n", batch=BATCH, **decode_nms_split(heads))
     # the front-end kernel for N, S and M beside its plain version and the
     # deploy model's own layers 0-2 in bf16 (the library path it has to beat)
     fe = {}
@@ -672,20 +687,35 @@ def main():
             **frontend_bound(e.fe_weights.cfg, BATCH, IMG, IMG)}
         del e, own
     fe_n = fe["maf-yolo-n"]
-    nms_ms, nms_plain_ms = {}, {}
+    nms_ms, nms_device_ms, nms_plain_ms = {}, {}, {}
     for m, (bt, vt) in nms_inputs.items():
         nms_ms[m] = cuda_ms(lambda: G.greedy_nms(bt, vt, 0.65), 10)
+        nms_device_ms[m] = graph_ms(lambda: G.greedy_nms(bt, vt, 0.65))
         nms_plain_ms[m] = cuda_ms(lambda: G.greedy_nms_plain(bt, vt, 0.65), 3)
-    # greedy NMS at M = 512: boxes, valid and keep moved once; every kept box
-    # is held against every later box (about 16 f32 operations a pair), and
-    # the keep loop is sequential over the kept boxes
+    # the same on the candidates of one real predict (the random boxes above
+    # keep nearly everything; a predict keeps a minority of its valid boxes)
+    bp, vp, thr_p = capture_nms_inputs(lambda: ev.predict(x))[0]
+    nms_predict = {"m": bp.shape[1], "valid": int(vp.sum().item()),
+                   "kept": int(G.greedy_nms(bp, vp, thr_p).sum().item()),
+                   "ms": cuda_ms(lambda: G.greedy_nms(bp, vp, thr_p), 10),
+                   "device_ms": graph_ms(lambda: G.greedy_nms(bp, vp, thr_p)),
+                   "plain_ms": cuda_ms(lambda: G.greedy_nms_plain(bp, vp, thr_p), 3)}
+    # greedy NMS at M = 512. Bytes and operations: boxes, valid and keep moved
+    # once; every kept box is held against every later box (about 16 f32
+    # operations a pair). The walk itself is a chain of M dependent decisions
+    # that no parallelism shortens: at one shared-memory round trip a
+    # decision (about 33 clocks at 1.755 GHz) that is the latency floor.
     bt, vt = nms_inputs[512]
     kept = G.greedy_nms(bt, vt, 0.65)
     later = torch.arange(511, -1, -1, device=dev)
     nms_bound = bound(bt.numel() * 4 + 2 * vt.numel(),
                       16 * int((kept * later).sum().item()), "f32")
+    nms_bound["latency_floor_ms"] = 512 * SMEM_ROUND_TRIP_CLOCKS / SM_CLOCK_HZ * 1e3
     emit(phase="timing_kernels", frontend_shape=[BATCH, IMG, IMG, 3], frontend=fe,
-         nms_ms=nms_ms, nms_plain_ms=nms_plain_ms, nms_bound=nms_bound)
+         nms_ms=nms_ms, nms_device_ms=nms_device_ms, nms_plain_ms=nms_plain_ms,
+         nms_predict=nms_predict, nms_bound=nms_bound,
+         note="nms_ms: CUDA events around eager calls; nms_device_ms: the same calls "
+              "replayed from a CUDA graph, the host out of the way")
 
     del gpu32, cpu32, outs
     s_res = s_phases(dev, ev.model, xs_n, nw_n, stem_err)
@@ -739,6 +769,7 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
     from mafyolo_tpu_torch.ops.nms import fused_decode_nms
     from mafyolo_tpu_torch.tools import profile_fma as P
     from mafyolo_tpu_torch.utils.bridge import random_folded_variables
+    from mafyolo_tpu_torch.utils.sample import evaler, images, random_deploy
     from mafyolo_tpu_torch.utils.timing import cuda_ms
     bf16 = torch.bfloat16
 
@@ -911,7 +942,9 @@ def train_phases(dev):
     from mafyolo_tpu_torch.utils.bridge import (random_train_variables,
                                                 state_dict_to_train_variables,
                                                 train_variables_to_state_dict)
-    from mafyolo_tpu_torch.utils.timing import cuda_ms
+    from mafyolo_tpu_torch.utils.sample import (cold_sets, dw_library, dw_site_inputs,
+                                                dw_sites, in_turn)
+    from mafyolo_tpu_torch.utils.timing import cuda_ms, graph_ms
     cl = torch.channels_last
 
     # ---- 8. train: N bs32@640 bf16 through the engine loop
@@ -1117,16 +1150,22 @@ def train_phases(dev):
     # the dw_grad kernel against its plain version at every site at B=32
     # (up to 819 200 terms per tap, several tiles per block, the path's
     # n_split), then the summed dk time per step, kernel against plain
-    dk_ms = dk_plain_ms = dk_library_ms = b32_err = b32_rel = 0.0
+    # (CUDA events around eager calls, and the same calls replayed from a CUDA
+    # graph: device time with the host out of the way), split by class of
+    # site (H, k); aten's weight gradient of the same conv is timed beside
+    # it and never called by the port. The timed calls of the kernel and of
+    # aten take copies of x and g in turn, enough of them that no call finds
+    # its input in the L2 cache, as in a train step (a 20 px site's x and g
+    # are 10-29 MB, and the cache holds 50)
+    keys = ("kernel_ms", "kernel_device_ms", "library_ms", "library_device_ms", "plain_ms",
+            "bound_ms")
+    per_class, b32_err, b32_rel = {}, 0.0, 0.0
     dk_bytes = dk_flops = 0
-    for c, h, w, k, pad, dil in sites:
-        gen = torch.Generator(device=dev).manual_seed(c + h + k)
-        # an offset keeps x nonzero at every border
-        x = (torch.randn((BATCH, c, h, w), generator=gen, device=dev) + 0.5) \
-            .to(torch.bfloat16).contiguous(memory_format=cl)
-        g = torch.randn((BATCH, c, h, w), generator=gen, device=dev).to(torch.bfloat16) \
-            .contiguous(memory_format=cl)
-        before = DG.dw_grad.launches
+    launches_before = DG.dw_grad.launches
+    for site in sorted(set(sites)):
+        c, h, w, k, pad, dil = site
+        count = sites.count(site)
+        x, g = dw_site_inputs(site, BATCH, dev)
         got = DG.dw_grad(x, g, k, pad, dil)
         want = DG.dw_grad_plain(x, g, k, pad, dil)
         err, scale = (got - want).abs().max().item(), want.abs().max().item()
@@ -1135,17 +1174,30 @@ def train_phases(dev):
         check(torch.equal(got, DG.dw_grad(x, g, k, pad, dil)),
               f"dw_grad not deterministic at B={BATCH} C{c} H{h} k{k}")
         b32_err, b32_rel = max(b32_err, err), max(b32_rel, err / scale)
-        dk_ms += cuda_ms(lambda: DG.dw_grad(x, g, k, pad, dil), iters=5)
-        dk_plain_ms += cuda_ms(lambda: DG.dw_grad_plain(x, g, k, pad, dil), iters=2, warmup=1)
-        # the library's weight gradient of the same depthwise conv (timing
-        # only; the port never calls it)
-        wk = torch.zeros((c, 1, k, k), dtype=torch.bfloat16, device=dev)
-        dk_library_ms += cuda_ms(lambda: torch.ops.aten.convolution_backward(
-            g, x, wk, None, [1, 1], [pad, pad], [dil, dil], False, [0, 0], c,
-            [False, True, False]), iters=5)
-        dk_bytes += 2 * x.numel() * 2 + c * k * k * 4
-        dk_flops += 2 * k * k * x.numel()
-        DG.dw_grad.launches = before       # check and timing launches are not the path's
+        sets = cold_sets((x, g))
+
+        def kernel(x, g):
+            return DG.dw_grad(x, g, k, pad, dil)
+        library = dw_library(x, k, pad, dil)
+        nbytes, flops = 2 * x.numel() * 2 + c * k * k * 4, 2 * k * k * x.numel()
+        rec = (cuda_ms(in_turn(kernel, sets), iters=20),
+               graph_ms(in_turn(kernel, sets), 10),
+               cuda_ms(in_turn(library, sets), iters=20),
+               graph_ms(in_turn(library, sets), 10),
+               cuda_ms(lambda: DG.dw_grad_plain(x, g, k, pad, dil), iters=2, warmup=1),
+               bound(nbytes, flops, "bf16")["bound_ms"])
+        cls = per_class.setdefault(f"h{h}k{k}", {"sites": 0, **dict.fromkeys(keys, 0.0)})
+        cls["sites"] += count
+        for key, v in zip(keys, rec):
+            cls[key] += count * v
+        dk_bytes += count * nbytes
+        dk_flops += count * flops
+    DG.dw_grad.launches = launches_before     # check and timing launches are not the path's
+    dk_ms, dk_device_ms, dk_library_ms, dk_library_device_ms, dk_plain_ms = (
+        sum(v[key] for v in per_class.values()) for key in keys[:5])
+    slower, slower_device = (
+        {n: v[f"kernel_{m}"] / v[f"library_{m}"] for n, v in per_class.items()
+         if v[f"kernel_{m}"] > v[f"library_{m}"]} for m in ("ms", "device_ms"))
     emit(phase="dw_grad_check_b32", sites=len(sites), batch=BATCH, dtype="bf16",
          max_abs_err=b32_err, max_rel_err=b32_rel,
          tolerance="1e-3 * max|plain| at each site; bit-identical on a second launch")
@@ -1156,7 +1208,12 @@ def train_phases(dev):
          **{f"{s_}_ms": float(np.mean(v)) for s_, v in per.items()},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          dk_sites=len(sites), dk_kernel_ms_per_step=dk_ms, dk_plain_ms_per_step=dk_plain_ms,
-         dk_library_ms=dk_library_ms, dk_bound=bound(dk_bytes, dk_flops, "bf16"))
+         dk_library_ms=dk_library_ms, dk_kernel_device_ms_per_step=dk_device_ms,
+         dk_library_device_ms=dk_library_device_ms, dk_bound=bound(dk_bytes, dk_flops, "bf16"),
+         dk_per_class=per_class, dk_classes_slower_than_library=slower,
+         dk_classes_slower_than_library_device=slower_device,
+         note="*_ms: CUDA events around eager calls; *_device_ms: the same calls replayed "
+              "from a CUDA graph; both on inputs that are not in the L2 cache")
     return {"launches": launches, "dk_ms": dk_ms, "dk_plain_ms": dk_plain_ms,
             "dk_err": b32_err, "dk_library_ms": dk_library_ms,
             "dk_bound": bound(dk_bytes, dk_flops, "bf16")}

@@ -26,9 +26,10 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas=-v"]
 # Per-source extra flags. The NMS keep mask must equal the plain version's
 # bit for bit, so its IoU arithmetic may not be contracted into FMAs; the
-# FMA probe wants contraction, which is nvcc's default.
-EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": [], "dw_grad": [],
-               "stem": [], "neck80": [], "fma_probe": []}
+# FMA probe wants contraction, which is nvcc's default. dw_grad holds 20
+# instantiations of its tile kernel: its optimization passes run in parallel.
+EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": [], "stem": [], "neck80": [],
+               "fma_probe": [], "dw_grad": ["-split-compile=0"]}
 
 _LOADED: dict = {}
 BUILD_LOG: dict = {}   # name -> (seconds, nvcc output) of builds run here
@@ -95,6 +96,34 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         lib.error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+def current_stream(device) -> int:
+    """The raw cudaStream_t of torch's current stream on `device` (what
+    torch.cuda.current_stream(device).cuda_stream gives, without building
+    the Stream object)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_SCRATCH: dict = {}
+
+
+def scratch(device, nbytes: int):
+    """A uint8 scratch tensor of at least nbytes on `device`, kept per
+    (device, current stream) and grown when a call needs more. Kernels on one
+    stream run in order, so the next call on that stream may overwrite it; a
+    caller on another stream gets a buffer of its own. While a CUDA graph
+    is being captured the buffer is fresh and not kept: it belongs to the
+    graph's own pool."""
+    import torch
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(nbytes, dtype=torch.uint8, device=device)
+    key = (device.index, current_stream(device))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _SCRATCH[key] = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8, device=device)
+    return buf
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,0 +1,158 @@
+"""Seeded inputs, weights and yardsticks that chip_smoke.py, the tuning tool
+and the card's tests share: images, an Evaler on random deploy weights whose
+heads give detections, the depthwise sites of a train graph with inputs for
+each, aten's weight gradient of the same conv (timed beside the dw_grad
+kernel, never called by the port), and the NMS kernel's timing inputs."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mafyolo_tpu_torch.core.evaler import Evaler
+from mafyolo_tpu_torch.models.blocks import DWConv
+from mafyolo_tpu_torch.models.graph import parse_graph
+from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
+from mafyolo_tpu_torch.ops import greedy_nms as G
+from mafyolo_tpu_torch.ops import nms as NMS
+from mafyolo_tpu_torch.utils.bridge import random_folded_variables
+
+NC, IMG = 80, 640
+L2_BYTES = 50 << 20        # the H100's L2 cache
+
+
+def images(seed, b, h=IMG, w=IMG):
+    """uint8 BGR images [b,h,w,3] from a seed, on the CPU."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (b, h, w, 3), dtype=np.uint8))
+
+
+def evaler(name, folded, half, device):
+    """An Evaler of `name` on the folded tree, NC classes."""
+    ev = Evaler(half=half, device=device)
+    ev.init_model(name, folded, nc=NC, folded=True)
+    return ev
+
+
+def random_deploy(name, dev):
+    """Random folded weights (seed 0, gain 1.5) whose heads give detections.
+
+    Gain 1.5 keeps activations image-dependent through the 34 layers. Random
+    heads are not peaky: an anchor whose feature is large lights up many
+    classes, and one anchor with more than two classes above threshold sends
+    its whole batch to the dense path (nms.py's fast-path condition). So each
+    head level keeps two live classes (2l, 2l+1); their cls_pred rows are
+    recentred and scaled, logit' = a*(W f - mu_c) + c, from 4 calibration
+    images, so that about 150 pairs per image clear conf 0.03. Returns the
+    tree and the conf at which about 2500 pairs per image pass, which
+    overflows compact_k = 512. The other classes get a zero kernel and a bias
+    of -30, and never fire."""
+    specs, _, head_layers = parse_graph(MODEL_ZOO[name], nc=NC)
+    folded = random_folded_variables(specs, seed=0, weight_gain=1.5)
+    net = folded["params"]["net"]
+    cal = evaler(name, folded, False, dev).forward(images(10, 4).to(dev))
+    live = []
+    for lvl, (i, o) in enumerate(zip(head_layers, cal)):
+        cls = list(range(2 * lvl, 2 * lvl + 2))
+        zl = torch.logit(o[1].double().clamp(1e-12, 1 - 1e-12)).reshape(4, -1, NC)[..., cls]
+        zl = zl - torch.from_numpy(net[f"layer{i}"]["cls_pred"]["bias"][cls]).to(dev)
+        mu = zl.mean((0, 1))
+        live.append((i, cls, mu, zl - mu))
+    a = 2.5 / torch.cat([d.flatten() for *_, d in live]).std().item()
+    q = (a * torch.cat([d.flatten() for *_, d in live])).sort(descending=True).values
+    c = float(np.log(0.03 / 0.97)) - q[150 * 4].item()
+    thr_over = float(1 / (1 + np.exp(-(q[2500 * 4].item() + c))))
+    for i, cls, mu, _ in live:
+        pred = net[f"layer{i}"]["cls_pred"]
+        bias = np.full(NC, -30.0, np.float32)
+        bias[cls] = c - a * mu.cpu().numpy()
+        kernel = np.zeros_like(pred["kernel"])
+        kernel[..., cls] = pred["kernel"][..., cls] * a
+        pred["kernel"], pred["bias"] = kernel, bias
+    return folded, thr_over
+
+
+def dw_sites(model, img, device):
+    """[(C, H, W, k, pad, dilation)] of every depthwise conv of a train-form
+    model at img x img, read from one forward (a dw_grad launch each per
+    backward)."""
+    sites, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, DWConv):
+            k = m.weight.shape[-1]
+            hooks.append(m.register_forward_hook(
+                lambda mod, a, o, k=k: sites.append(
+                    (a[0].shape[1], a[0].shape[2], a[0].shape[3], k, mod.pad,
+                     mod.dilation))))
+    with torch.no_grad():
+        model.eval()(torch.zeros(1, img, img, 3, device=device))
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def dw_site_inputs(site, batch, dev):
+    """bf16 channels-last x (offset 0.5: nonzero at every border) and g."""
+    c, h, w, k, pad, dil = site
+    gen = torch.Generator(device=dev).manual_seed(c + h + k)
+    ho, wo = h + 2 * pad - dil * (k - 1), w + 2 * pad - dil * (k - 1)
+    x = (torch.randn((batch, c, h, w), generator=gen, device=dev) + 0.5) \
+        .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    g = torch.randn((batch, c, ho, wo), generator=gen, device=dev).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    return x, g
+
+
+def dw_library(x, k, pad, dil):
+    """fn(x, g): one call of aten's weight gradient of the depthwise conv that
+    x [B,C,H,W] goes through (a yardstick; the port never calls it)."""
+    c = x.shape[1]
+    wk = torch.zeros((c, 1, k, k), dtype=x.dtype, device=x.device)
+    return lambda x, g: torch.ops.aten.convolution_backward(
+        g, x, wk, None, [1, 1], [pad, pad], [dil, dil], False, [0, 0], c,
+        [False, True, False])
+
+
+def cold_sets(tensors, l2_bytes=L2_BYTES):
+    """[tensors, copies of them, ...]: enough sets that a pass over all of
+    them moves more than twice the L2 cache, so a call that takes the sets in
+    turn finds none of its input there (one set when the tensors alone are
+    that large)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(1, -(-2 * l2_bytes // nbytes))
+    return [tuple(tensors)] + [tuple(t.clone(memory_format=torch.preserve_format)
+                                     for t in tensors) for _ in range(n - 1)]
+
+
+def in_turn(fn, sets):
+    """A call without arguments that runs fn(*sets[i]) for i = 0, 1, ... in turn."""
+    state = {"i": 0}
+
+    def run():
+        args = sets[state["i"] % len(sets)]
+        state["i"] += 1
+        return fn(*args)
+    return run
+
+
+def random_boxes(rng, batch, m):
+    """Score-ordered random boxes and a 90%-valid mask (few overlaps: most
+    boxes are kept)."""
+    xy = rng.uniform(0, 400, (batch, m, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + rng.uniform(10, 120, (batch, m, 2))], -1)
+    return boxes.astype(np.float32), rng.uniform(0, 1, (batch, m)) > 0.1
+
+
+def capture_nms_inputs(predict):
+    """The (boxes, valid, thr) of every greedy_nms call that predict() makes."""
+    calls, real = [], NMS.greedy_nms
+
+    def spy(boxes, valid, thr):
+        calls.append((boxes.clone(), valid.clone(), thr))
+        return real(boxes, valid, thr)
+    NMS.greedy_nms = spy
+    try:
+        predict()
+    finally:
+        NMS.greedy_nms = real
+    assert real is G.greedy_nms
+    return calls

@@ -17,6 +17,7 @@ from mafyolo_tpu_torch.ops import greedy_nms as G
 from mafyolo_tpu_torch.ops import neck as N
 from mafyolo_tpu_torch.ops import stem as S
 from mafyolo_tpu_torch.tools import profile_fma as P
+from mafyolo_tpu_torch.utils import nms_cases as NC
 from torch_common import cuda_device, port_model, random_folded, u8_images  # noqa: F401
 
 pytestmark = pytest.mark.gpu
@@ -62,17 +63,23 @@ def test_frontend_kernel_matches_plain(cuda_device, name, hw, big_bias):
     assert F.frontend_forward.launches == before + 2
 
 
-@pytest.mark.parametrize("m", [512, 2000])
+@pytest.mark.parametrize("m", NC.SIZES)
 def test_nms_kernel_matches_plain(cuda_device, m):
-    rng = np.random.default_rng(m)
-    xy = rng.uniform(0, 300, (8, m, 2)).astype(np.float32)
-    boxes = np.concatenate([xy, xy + rng.uniform(10, 80, (8, m, 2))], -1)
-    bt = torch.from_numpy(boxes.astype(np.float32)).to(cuda_device)
-    vt = torch.from_numpy(rng.uniform(0, 1, (8, m)) > 0.15).to(cuda_device)
+    boxes, valid = NC.random_boxes(m, 8, m)
+    bt, vt = torch.from_numpy(boxes).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
     before = G.greedy_nms.launches
     got = G.greedy_nms(bt, vt, 0.65)
     assert G.greedy_nms.launches == before + 1
     torch.testing.assert_close(got, G.greedy_nms_plain(bt, vt, 0.65), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", NC.CORNER_CASES)
+def test_nms_kernel_corner_cases(cuda_device, case):
+    boxes, valid, thr = NC.corner_case(case)
+    bt, vt = torch.from_numpy(boxes).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
+    got = G.greedy_nms(bt, vt, thr)
+    torch.testing.assert_close(got, G.greedy_nms_plain(bt, vt, thr), atol=0, rtol=0)
+    assert NC.expected(case, got.cpu().numpy())
 
 
 def test_wrappers_reject_bad_input(cuda_device):
@@ -99,11 +106,17 @@ def _dw_inputs(device, dtype, b, c, h, w, k, dil):
 @pytest.mark.parametrize("c,h,w,k,dil", [(72, 40, 40, 3, 1), (144, 20, 20, 5, 1),
                                          (40, 20, 36, 9, 1), (33, 17, 23, 7, 1),
                                          (64, 24, 24, 1, 1), (16, 32, 32, 9, 2),
-                                         (8, 16, 16, 3, 5)])
+                                         (8, 16, 16, 3, 5), (1, 37, 23, 5, 1),
+                                         (33, 37, 23, 3, 1), (72, 37, 23, 9, 1),
+                                         (72, 1, 1, 3, 1), (33, 1, 1, 1, 1),
+                                         (72, 80, 80, 1, 1), (64, 20, 20, 9, 2),
+                                         (128, 160, 160, 3, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dw_grad_kernel_matches_plain(cuda_device, c, h, w, k, dil, dtype):
     """f32 at 1e-3 of the largest |dk| (both sum in f32, in another order);
-    bf16 inputs are the same numbers for both, so the same bound holds."""
+    bf16 inputs are the same numbers for both, so the same bound holds.
+    C = 1 and 33 take the element-wise staging (no whole 16-byte chunk), 72
+    leaves a ragged channel group, 37x23 and 1x1 no tile divides."""
     x, g, pad = _dw_inputs(cuda_device, dtype, 2, c, h, w, k, dil)
     before = DG.dw_grad.launches
     got = DG.dw_grad(x, g, k, pad, dil)
@@ -112,6 +125,59 @@ def test_dw_grad_kernel_matches_plain(cuda_device, c, h, w, k, dil, dtype):
     assert got.dtype == torch.float32 and got.shape == (c, 1, k, k)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * want.abs().max().item())
     assert torch.equal(got, DG.dw_grad(x, g, k, pad, dil))     # deterministic
+
+
+@pytest.mark.parametrize("k,pad", [(3, 0), (5, 4), (1, 2), (9, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_grad_kernel_other_padding(cuda_device, k, pad, dtype):
+    """pad != (k-1)/2, so Ho != H: g is smaller or larger than x."""
+    rng = np.random.default_rng(k + pad)
+    h, w, c = 26, 31, 40
+    ho, wo = h + 2 * pad - (k - 1), w + 2 * pad - (k - 1)
+    cl = torch.channels_last
+    x = torch.from_numpy(rng.normal(0.5, 1, (2, c, h, w)).astype(np.float32)) \
+        .to(cuda_device, dtype).contiguous(memory_format=cl)
+    g = torch.from_numpy(rng.normal(0, 1, (2, c, ho, wo)).astype(np.float32)) \
+        .to(cuda_device, dtype).contiguous(memory_format=cl)
+    got = DG.dw_grad(x, g, k, pad)
+    want = DG.dw_grad_plain(x, g, k, pad)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * want.abs().max().item())
+    assert torch.equal(got, DG.dw_grad(x, g, k, pad))
+
+
+@pytest.mark.parametrize("th,tw", [(1, 10), (3, 7), (20, 20), (5, 40), (24, 13)])
+def test_dw_grad_kernel_any_cut(cuda_device, th, tw):
+    """Any cut gives the same sum; the planner's shared-memory figure is the
+    kernel's own."""
+    x, g, pad = _dw_inputs(cuda_device, torch.bfloat16, 3, 72, 40, 40, 5, 1)
+    want = DG.dw_grad_plain(x, g, 5, pad)
+    lib = DG._build.load("dw_grad", DG._SIG)
+    ran = 0
+    for n_split in (1, 7, 500, 29):
+        smem = DG.smem_bytes(5, 1, th, -(-tw // DG.RUN) * DG.RUN, 2, 1)     # whole runs
+        assert smem == lib.dw_grad_smem(5, 1, th, -(-tw // DG.RUN) * DG.RUN, 1, 1)
+        if smem > DG.SMEM_LIMIT:
+            continue
+        got = DG.dw_grad_cut(x, g, 5, pad, 1, DG.Plan(False, th, tw, 1, n_split, smem))
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * want.abs().max().item())
+        ran += 1
+    assert ran >= 1
+
+
+@pytest.mark.parametrize("th,tw,n_split", [(5, 20, 5), (8, 20, 1), (1, 10, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_grad_kernel_two_channels_a_thread(cuda_device, th, tw, n_split, dtype):
+    """The form with two channels a lane (k = 3), on C = 72 (a ragged group
+    of 64) and a 37 x 23 image; a form the kernel is not built for raises."""
+    x, g, pad = _dw_inputs(cuda_device, dtype, 3, 72, 37, 23, 3, 1)
+    want = DG.dw_grad_plain(x, g, 3, pad)
+    cut = DG.Plan(False, th, tw, 2, n_split, DG.smem_bytes(3, 1, th, tw, x.element_size(), 2))
+    got = DG.dw_grad_cut(x, g, 3, pad, 1, cut)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * want.abs().max().item())
+    assert torch.equal(got, DG.dw_grad_cut(x, g, 3, pad, 1, cut))
+    x5, g5, pad5 = _dw_inputs(cuda_device, dtype, 3, 72, 37, 23, 5, 1)
+    with pytest.raises(RuntimeError, match="dw_grad kernel"):
+        DG.dw_grad_cut(x5, g5, 5, pad5, 1, cut)
 
 
 def test_dw_grad_rejects_bad_input(cuda_device):

@@ -30,6 +30,15 @@ def test_port_imports_no_jax():
                    timeout=300)
 
 
+def test_port_does_not_import_the_smoke_script():
+    """chip_smoke.py drives the package, never the other way round: what the
+    two share lives in the package (utils/sample.py, utils/nms_cases.py)."""
+    for path in (ROOT / "mafyolo_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            assert not (line.lstrip().startswith(("import ", "from "))
+                        and "chip_smoke" in line), f"{path}: {line}"
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     """Here (no CUDA device) it exits non-zero with a clear message and no

@@ -19,6 +19,7 @@ from mafyolo_tpu_torch.ops import greedy_nms as G
 from mafyolo_tpu_torch.ops.boxes import box_iou_pairwise, xywh2xyxy
 from mafyolo_tpu_torch.ops.compaction import compact_mask_indices
 from mafyolo_tpu_torch.ops.nms import fused_decode_nms
+from mafyolo_tpu_torch.utils import nms_cases as NC
 
 
 def _boxes(seed, b, m, spread=640.0):
@@ -123,3 +124,39 @@ def test_plain_greedy_mask_matches_pallas_kernel():
     got = G.greedy_nms(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5)
     np.testing.assert_array_equal(got.numpy(), want)
 
+
+# ---- the CUDA kernel's formulation (suppression bit matrix, then a walk in
+# chunks of 64) in plain tensors, held to the sequential plain version
+
+
+@pytest.mark.parametrize("m", NC.SIZES)
+def test_bitmatrix_formulation_matches_plain(m):
+    boxes, valid = NC.random_boxes(m, 2 if m > 512 else 4, m)
+    bt, vt = torch.from_numpy(boxes), torch.from_numpy(valid)
+    want = G.greedy_nms_plain(bt, vt, 0.65)
+    got = G.greedy_nms_bitmatrix_plain(bt, vt, 0.65)
+    assert torch.equal(got, want)
+    assert not got[~vt].any() and (m < 256 or 0 < got.sum() < vt.sum())
+
+
+@pytest.mark.parametrize("case", NC.CORNER_CASES)
+def test_bitmatrix_formulation_corner_cases(case):
+    boxes, valid, thr = NC.corner_case(case)
+    bt, vt = torch.from_numpy(boxes), torch.from_numpy(valid)
+    want = G.greedy_nms_plain(bt, vt, thr)
+    assert torch.equal(G.greedy_nms_bitmatrix_plain(bt, vt, thr), want)
+    assert NC.expected(case, want.numpy())
+
+
+@pytest.mark.parametrize("case", NC.CORNER_CASES)
+def test_plain_greedy_mask_corner_cases_match_jax(case):
+    boxes, valid, thr = NC.corner_case(case)
+    got = G.greedy_nms(torch.from_numpy(boxes), torch.from_numpy(valid), thr).numpy()
+    np.testing.assert_array_equal(got, _jax_keep(boxes, valid, thr))
+
+
+@pytest.mark.parametrize("m,words", [(1, 64), (64, 64), (65, 256), (512, 4096), (2000, 65536)])
+def test_matrix_words(m, words):
+    """Scratch of the bit matrix: ceil(M/64) words a row, rows padded to a
+    multiple of 64 (32 KB an image at M = 512, 512 KB at M = 2000)."""
+    assert G.matrix_words(m) == words

@@ -6,8 +6,8 @@
 Phases, in order; any failure exits non-zero without a result line:
   1. device     a CUDA card is present; print its name and power limit;
   2. build      nvcc-build the hand-written kernels from mafyolo_tpu_torch/csrc;
-                cuobjdump -sass of the front-end and neck libraries must hold
-                tensor-core instructions (HMMA or HGMMA);
+                cuobjdump -sass of the front-end, neck and stem libraries must
+                hold tensor-core instructions (HMMA or HGMMA);
   3. frontend   the fused front-end kernel against its plain version
                 (N bs4@640, S and M bs2@640, a 256x64 N batch, and 200x168
                 batches of N, S and M, whose H/4 = 50 and W/4 = 42 no tile
@@ -22,13 +22,17 @@ Phases, in order; any failure exits non-zero without a result line:
                 and paddings that make Ho != H; f32 and bf16, twice for the
                 bits; a launch over the block's shared memory must raise;
   6. stem       the stem kernel against its plain version for N, S and M
-                weights at bs2@640 and at 2x66x130 (odd H/2 and W/2 tails);
+                weights at bs2@640 and at 2x66x130 (odd H/2 and W/2 tails,
+                390-byte rows): f32 within 1e-3, bf16 within one bf16
+                rounding of the f32 result, a second launch bit-identical;
   7. slice      MAF-YOLO-N deploy Evaler.predict in bf16, bs32 uint8 @640,
                 for BATCHES batches plus one batch that overflows into the
                 dense NMS path, with every kernel's launch count read around
                 that run; then the card in f32 against the CPU plain path on
                 2 images @640 and on one 2x126x94 batch (conf 0.001), which
                 takes the model's own layers 0-2 (no front-end launch);
+                the bf16 predict of a bs32 batch against the f32 predict
+                of it, by the front-end route and by the stem route;
   8. neck (N)   the neck kernel against its plain version on the real
                 layer-20 input of N's bs32@640 forward; the plain version
                 against the model's own layers 19-22;
@@ -45,24 +49,35 @@ Phases, in order; any failure exits non-zero without a result line:
                 around that run; in f32 on the card, one bs32 batch's
                 detections matched against the front-end route
                 (Evaler.predict), and 2 images' against the CPU plain path;
-                the bf16 routes' agreement is reported;
+                each bf16 route against the f32 predict of the same batch,
+                and each route's layer-2 output against f32 layers 0-2;
  11. neck (S, M)  the neck kernel against its plain version on S's real
                 layer-20 input at bs32 and on random M inputs at bs2;
  12. timing_s   S img/s, p50 and p90 through the stem route and through the
-                front-end route, each split into stages; stem and neck
-                kernels beside their plain versions (neck at S and N, and
-                beside the model's own layers 19-22); the FMA probe's kernel
+                front-end route, each split into stages; the neck kernel
+                beside its plain version (at S and N, and beside the
+                model's own layers 19-22); the FMA probe's kernel
                 and plain chains at [32768, 1536] (its tool entry point);
- 13. train      MAF-YOLO-N train steps at bs32@640 in bf16 through the port's
+ 13. slice_m    MAF-YOLO-M deploy in bf16, M_BATCHES batches of bs32 uint8
+                @640 through Evaler.predict with the front-end and NMS
+                launch counts read around that run; card f32 against the
+                CPU plain path on 2 images; bf16 against f32; img/s, p50 and
+                the stage split; then every bf16-against-f32 share (N, S by
+                both routes, M) against its floor, BF16_SHARE_FLOOR;
+ 14. timing_stem  the stem kernel for N, S and M at bs32@640: its gates,
+                then its time (bf16 and f32), its plain version's and the
+                model's own layer 0's, each call on the next of enough
+                copies of the input that none is in L2;
+ 15. train      MAF-YOLO-N train steps at bs32@640 in bf16 through the port's
                 engine loop (accumulate 2: accumulate-only and apply steps
                 alternate; ATSS epoch, then TAL epoch), with the dw_grad
                 launch count read around that run;
- 14. train_check  one f32 step of N at bs2@160 on the card against the CPU
+ 16. train_check  one f32 step of N at bs2@160 on the card against the CPU
                 plain path: loss components, every gradient, BN stats;
- 15. train_to_serve  the EMA folded into the deploy model, Evaler.predict;
+ 17. train_to_serve  the EMA folded into the deploy model, Evaler.predict;
                 the folded model in f32 against the train form in eval mode
                 on the same EMA weights (every head's inner outputs);
- 16. timing_train  train-step img/s and its stage split; the device's busy
+ 18. timing_train  train-step img/s and its stage split; the device's busy
                 time and idle share over two profiled steps; the dw_grad
                 kernel against its plain version at every DW site at B=32
                 (values and determinism), and the summed dk time per step,
@@ -87,6 +102,17 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, IMG, BATCHES, NC = 32, 640, 20, 80
+M_BATCHES = 4              # MAF-YOLO-M predicts at bs32@640
+# The least share of the f32 predict's detections that the bf16 predict of
+# the same batch must match (match()'s criterion): 0.6 x the lowest share
+# measured (PERF.md §6, the stem kernel's entry; NVIDIA H100 80GB HBM3,
+# 700.00 W). Random heads
+# rescaled to fire move bf16 scores by 0.013-0.056 on average there, past
+# the 0.01 of the criterion, so the levels are low, and a change in the last
+# bit of some layer-0 values moved a share by up to 29% of its level (N's
+# stem route, 24 -> 17 of 488); a route that broke would fall to 0.
+BF16_SHARE_FLOOR = {"n_frontend": 0.063, "n_stem": 0.020, "s_stem": 0.182,
+                    "s_frontend": 0.187, "m_frontend": 0.309}
 STEPS_PER_EPOCH = 3665     # COCO train2017 (117266 images) at bs 32
 TRAIN_STEPS = 4            # per epoch: an ATSS epoch, then a TAL epoch
 
@@ -158,12 +184,12 @@ def model_layers0_2(model, dtype):
 
 
 def tensor_core_check(paths):
-    """cuobjdump -sass of the built front-end and neck libraries must hold
-    HMMA or HGMMA instructions; a missing cuobjdump fails."""
+    """cuobjdump -sass of the built front-end, neck and stem libraries must
+    hold HMMA or HGMMA instructions; a missing cuobjdump fails."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.path.exists(tool), "cuobjdump not found: cannot show the tensor-core instructions")
-    for name in ("frontend", "neck80"):
+    for name in ("frontend", "neck80", "stem"):
         proc = subprocess.run([tool, "-sass", str(paths[name])], capture_output=True,
                               text=True, timeout=300)
         check(proc.returncode == 0, f"cuobjdump failed on {name}: {proc.stderr[-300:]}")
@@ -203,6 +229,7 @@ def dw_grad_phase(dev):
     import torch
 
     from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.ops import _build
     from mafyolo_tpu_torch.ops import dw_grad as DG
     from mafyolo_tpu_torch.utils.sample import dw_sites
     cl = torch.channels_last
@@ -233,7 +260,7 @@ def dw_grad_phase(dev):
                                 f"{err} > {bound}")
             check(torch.equal(got, again), f"dw_grad not deterministic C{c} H{h} k{k}")
             dk_err = max(dk_err, err)
-        cut = DG.plan(2, c, ho, wo, k, pad, dil, 2, DG._sms(dev.index))
+        cut = DG.plan(2, c, ho, wo, k, pad, dil, 2, _build.sm_count(dev.index))
         emit(phase="dw_grad_check", c=c, h=h, w=w, k=k, pad=pad, dilation=dil, batch=2,
              cut_bf16=cut._asdict(),
              max_abs_err_f32=errs["float32"][0], bound_f32=errs["float32"][1],
@@ -354,6 +381,57 @@ def check_dets(outs, b, what):
         check(bool((s[:, 1:] <= s[:, :-1]).all()), f"{what}: scores not descending")
 
 
+def on_cpu(out):
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def bf16_vs_f32(tag, ref32, got16, heads32=None, heads16=None):
+    """The share of the f32 predict's detections (score > 0.1) that the bf16
+    predict of the same batch matches under match()'s criterion, and, given
+    both forwards' head outputs, how far the bf16 scores moved from the f32
+    ones over the (anchor, class) pairs whose f32 score is above 0.1."""
+    import torch
+    n, m = match(on_cpu(ref32), on_cpu(got16), 0.1)
+    rec = {"route": tag, "f32_dets_above_0p1": n, "matched": m, "share": m / max(n, 1)}
+    if heads32 is not None:
+        d = torch.cat([(g[1].float() - r[1].float()).abs()[r[1].float() > 0.1]
+                       for r, g in zip(heads32, heads16)])
+        rec.update(score_pairs=d.numel(), dscore_max=d.max().item(),
+                   dscore_mean=d.mean().item(), dscore_over_0p01=(d > 0.01).float().mean().item())
+    emit(phase="bf16_vs_f32", **rec)
+    return rec
+
+
+def rel_err(got, want):
+    """(max |got - want| / max |want|, mean |got - want| / mean |want|)."""
+    d, w = (got.float() - want.float()).abs(), want.float().abs()
+    return d.max().item() / w.max().item(), d.mean().item() / w.mean().item()
+
+
+def stem_gate(x, sw, what):
+    """The stem kernel against stem_plain (f32) on x: f32 within 1e-3; bf16
+    within one bf16 rounding of the f32 result (|got - want| <= 1e-6 +
+    2^-8 |want|: rtol 2^-8 is the worst relative error of rounding to
+    bf16); a second launch of each bit-identical. Returns (max f32 error,
+    max bf16 error, mean bf16 error, the largest ratio of the bf16 error to
+    its allowance)."""
+    import torch
+
+    from mafyolo_tpu_torch.ops import stem as S
+    want = S.stem_plain(x, sw)
+    got32, got16 = S.stem_conv_s2(x, sw, torch.float32), S.stem_conv_s2(x, sw, torch.bfloat16)
+    same = (torch.equal(got32, S.stem_conv_s2(x, sw, torch.float32))
+            and torch.equal(got16, S.stem_conv_s2(x, sw, torch.bfloat16)))
+    e16 = (got16.float() - want).abs()
+    ratio = (e16 / (1e-6 + 2 ** -8 * want.abs())).max().item()
+    errs = ((got32 - want).abs().max().item(), e16.max().item(), e16.mean().item(), ratio)
+    check(torch.allclose(got32, want, atol=1e-3, rtol=1e-3),
+          f"{what}: f32 kernel disagrees with plain: {errs[0]}")
+    check(ratio <= 1.0, f"{what}: bf16 kernel off by more than one bf16 rounding: {errs}")
+    check(same, f"{what}: a second launch gave other bits")
+    return errs + (same,)
+
+
 def kernel_vs_plain(got32, got16, want, what):
     """The tolerances of every kernel check: f32 atol/rtol 1e-3; bf16
     atol/rtol 0.05 with mean error < 0.01 (the JAX kernel tests'). Returns
@@ -370,11 +448,11 @@ def kernel_vs_plain(got32, got16, want, what):
 
 def stem_phase(dev):
     """Phase 6: the stem kernel against its plain version for N, S and M
-    weights (nonzero random biases) at bs2@640 and 2x66x130. Returns the
-    largest bf16 error."""
+    weights (nonzero random biases) at bs2@640 and 2x66x130 (odd H/2 and
+    W/2; 390-byte rows, which no 16-byte copy covers). Returns the largest
+    bf16 error."""
     from mafyolo_tpu_torch.models.graph import parse_graph
     from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
-    import torch
 
     from mafyolo_tpu_torch.ops import stem as S
     from mafyolo_tpu_torch.utils.bridge import random_folded_variables
@@ -382,16 +460,14 @@ def stem_phase(dev):
     worst = 0.0
     for name in ("maf-yolo-n", "maf-yolo-s", "maf-yolo-m"):
         folded = random_folded_variables(parse_graph(MODEL_ZOO[name], nc=NC)[0], seed=1)
-        ev = evaler(name, folded, False, dev)
-        sw = S.stem_build(ev.model.net)
+        sw = S.stem_build(evaler(name, folded, False, dev).model.net)
         for b, h, w in ((2, IMG, IMG), (2, 66, 130)):
             x = images(3, b, h, w).to(dev)
+            e32, e16, m16, ratio, same = stem_gate(x, sw, f"stem {name} {h}x{w}")
             want = S.stem_plain(x, sw)
-            e32, e16, m16 = kernel_vs_plain(S.stem_conv_s2(x, sw, torch.float32),
-                                            S.stem_conv_s2(x, sw, torch.bfloat16), want,
-                                            f"stem {name} {h}x{w}")
             emit(phase="stem_check", model=name, shape=[b, h, w], cout=sw.cout,
                  max_abs_err_f32=e32, max_abs_err_bf16=e16, mean_abs_err_bf16=m16,
+                 bf16_err_over_one_rounding=ratio, bit_identical=same,
                  out_std=want.std().item(), positive_share=(want > 0).float().mean().item())
             worst = max(worst, e16)
     return worst
@@ -487,6 +563,7 @@ def main():
     from mafyolo_tpu_torch.ops import frontend as FE
     from mafyolo_tpu_torch.ops import greedy_nms as G
     from mafyolo_tpu_torch.ops import neck as N
+    from mafyolo_tpu_torch.ops import stem as S
     from mafyolo_tpu_torch.ops.nms import fused_decode_nms
     from mafyolo_tpu_torch.utils import nms_cases as CASES
     from mafyolo_tpu_torch.utils.bridge import random_folded_variables
@@ -634,6 +711,17 @@ def main():
     two = images(7, 2)
     n_ref, matched = match(cpu32.predict(two),
                            {k: v.cpu() for k, v in gpu32.predict(two.to(dev)).items()}, 0.1)
+    # bf16 against f32 on the same bs32 batch: the front-end route
+    # (Evaler.predict) and the stem route
+    shares = {"n_frontend": bf16_vs_f32("maf-yolo-n frontend", gpu32.predict(batches[0]),
+                                        outs[0], gpu32.forward(batches[0]),
+                                        ev.forward(batches[0]))["share"]}
+    n_stem, n_sw, n_stem_predict = stem_route("maf-yolo-n", folded, True, dev)
+    shares["n_stem"] = bf16_vs_f32(
+        "maf-yolo-n stem", gpu32.predict(batches[0]), n_stem_predict(batches[0]),
+        gpu32.forward(batches[0]),
+        n_stem(S.stem_conv_s2(batches[0], n_sw, torch.bfloat16)))["share"]
+    del n_stem, n_sw, n_stem_predict
     ragged = images(8, 2, 126, 94)
     gpu32.conf_thres = cpu32.conf_thres = 0.001
     fe_before = FE.frontend_forward.launches
@@ -718,8 +806,19 @@ def main():
               "replayed from a CUDA graph, the host out of the way")
 
     del gpu32, cpu32, outs
-    s_res = s_phases(dev, ev.model, xs_n, nw_n, stem_err)
-    del ev, batches, xs_n
+    s_res = s_phases(dev, ev.model, xs_n, nw_n)
+    shares.update(s_res["shares"])
+    m_model = m_phase(dev, shares)
+    emit(phase="bf16_vs_f32_shares", shares=shares, floors=BF16_SHARE_FLOOR,
+         note="matched share of the f32 predict's detections (score > 0.1) by the bf16 "
+              "predict of the same bs32 batch")
+    for key, floor in BF16_SHARE_FLOOR.items():
+        check(shares[key] >= floor, f"bf16 against f32, {key}: share {shares[key]} < {floor}")
+    stem_t = stem_timing(dev, {"maf-yolo-n": ev.model, "maf-yolo-s": s_res["model"],
+                               "maf-yolo-m": m_model})
+    stem_s = stem_t["maf-yolo-s"]
+    stem_err = max([stem_err] + [r["max_abs_err_bf16"] for r in stem_t.values()])
+    del ev, batches, xs_n, m_model, s_res["model"]
     torch.set_grad_enabled(True)
     train = train_phases(dev)
     dk_err = max(dk_err, train["dk_err"])
@@ -744,6 +843,11 @@ def main():
          "ms": train["dk_ms"], "plain_ms": train["dk_plain_ms"],
          "bound_ms": train["dk_bound"]["bound_ms"], "bound_by": train["dk_bound"]["bound_by"],
          "library_ms": train["dk_library_ms"]},
+        {"name": "stem", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/stem.cu",
+         "replaces": "mafyolo_tpu/ops/stem_pallas.py:99", "launches": s_res["stem_launches"],
+         "max_abs_err": stem_err, "ms": stem_s["ms"], "plain_ms": stem_s["plain_ms"],
+         "bound_ms": stem_s["bound_ms"], "bound_by": stem_s["bound_by"],
+         "library_ms": stem_s["library_ms"]},
         *s_res["kernels"],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -751,12 +855,13 @@ def main():
           flush=True)
 
 
-def s_phases(dev, n_model, xs_n, nw_n, stem_err):
+def s_phases(dev, n_model, xs_n, nw_n):
     """Phases 10-12: MAF-YOLO-S deploy through the stem route, the neck kernel
-    on its activations, the S timings by both routes and the new kernels'
-    times (the neck also on N's sources xs_n, with N's weights nw_n). Returns
-    the kernel-line entries of the stem (stem_err from phase 6), neck and
-    FMA-probe kernels."""
+    on its activations, the S timings by both routes and the neck and FMA
+    probe kernels' times (the neck also on N's sources xs_n, with N's weights
+    nw_n). Returns the kernel-line entries of the neck and FMA-probe kernels,
+    the stem route's stem launches, the bf16-against-f32 shares of both
+    routes and the bf16 deploy model of S."""
     import numpy as np
     import torch
 
@@ -772,9 +877,6 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
     from mafyolo_tpu_torch.utils.sample import evaler, images, random_deploy
     from mafyolo_tpu_torch.utils.timing import cuda_ms
     bf16 = torch.bfloat16
-
-    def on_cpu(out):
-        return {k: v.cpu() for k, v in out.items()}
 
     # ---- 10. slice_s: stem -> layers 1-33 -> decode + NMS, bf16, bs32@640,
     # with the neck kernel run on each batch's layer-20 input
@@ -808,26 +910,42 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
 
     # In f32 on the card: the stem route against the front-end route
     # (Evaler.predict) on one bs32 batch, and against the CPU plain path on 2
-    # images. In bf16 the two routes round at different places (layer 0's
-    # output against the front-end kernel's f32 layers 0-2); the random heads'
-    # rescale amplifies that to score moves of several 0.01, so their
-    # agreement under the same criteria is reported, not gated.
+    # images. Then each bf16 route against the f32 predict of the same batch,
+    # and where each leaves the f32 values: layer 0 (stem) and layer 2 (both).
     ev_s = evaler(name, folded, True, dev)
-    n_bf, m_bf = match(on_cpu(ev_s.predict(batches[0])), on_cpu(outs[0]), 0.1)
+    ev_s32 = evaler(name, folded, False, dev)
     predict32 = stem_route(name, folded, False, dev)[2]
-    n_fe, m_fe = match(on_cpu(evaler(name, folded, False, dev).predict(batches[0])),
-                       on_cpu(predict32(batches[0])), 0.1)
+    ref32 = ev_s32.predict(batches[0])
+    n_fe, m_fe = match(on_cpu(ref32), on_cpu(predict32(batches[0])), 0.1)
     two = images(9, 2)
     n_cpu, m_cpu = match(stem_route(name, folded, False, "cpu")[2](two),
                          on_cpu(predict32(two.to(dev))), 0.1)
     emit(phase="slice_s_check", f32_frontend_route_dets_above_0p1=n_fe, f32_matched=m_fe,
          f32_fraction=m_fe / max(n_fe, 1), cpu_f32_dets_above_0p1=n_cpu, cpu_matched=m_cpu,
-         cpu_fraction=m_cpu / max(n_cpu, 1), bf16_frontend_route_dets_above_0p1=n_bf,
-         bf16_matched=m_bf, bf16_fraction=m_bf / max(n_bf, 1))
+         cpu_fraction=m_cpu / max(n_cpu, 1))
     check(n_fe >= 10 and m_fe / n_fe >= 0.95,
           f"slice_s vs the front-end route: {m_fe}/{n_fe} detections matched")
     check(n_cpu >= 10 and m_cpu / n_cpu >= 0.95,
           f"slice_s card f32 vs CPU: {m_cpu}/{n_cpu} detections matched")
+    x = batches[0]
+    heads32 = ev_s32.forward(x)
+    shares = {"s_stem": bf16_vs_f32("maf-yolo-s stem", ref32, outs[0], heads32,
+                                    model(S.stem_conv_s2(x, sw, bf16)))["share"],
+              "s_frontend": bf16_vs_f32("maf-yolo-s frontend", ref32, ev_s.predict(x), heads32,
+                                        ev_s.forward(x))["share"]}
+    y2_32 = model_layers0_2(ev_s32.model, torch.float32)(x).permute(0, 2, 3, 1)
+    y2_stem = model.net.layer2(model.net.layer1(
+        S.stem_conv_s2(x, sw, bf16).permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+    y0_32 = S.stem_plain(x, sw)
+    emit(phase="bf16_first_layers", model=name, batch=BATCH,
+         stem_layer0_vs_f32=rel_err(S.stem_conv_s2(x, sw, bf16), y0_32),
+         stem_layer0_equal_to_rounded_f32=(S.stem_conv_s2(x, sw, bf16) == y0_32.to(bf16))
+         .float().mean().item(),
+         stem_route_layer2_vs_f32=rel_err(y2_stem, y2_32),
+         frontend_layer2_vs_f32=rel_err(FE.frontend_forward(x, ev_s.fe_weights, bf16), y2_32),
+         note="(max |bf16 - f32| / max |f32|, mean |bf16 - f32| / mean |f32|) on the same "
+              "batch; f32 is stem_plain at layer 0 and the f32 model's own layers 0-2")
+    del ev_s32, predict32, heads32, y0_32, y2_32, y2_stem
 
     # ---- 11. neck on S's real sources at bs32, and on random M sources at bs2
     neck_err = neck_phase("maf-yolo-s bs32@640", model, xs, nw)
@@ -859,15 +977,6 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
                      "p90_batch_ms": stem_p90, **stem_stages},
          frontend_route={"img_per_s": fe_img_s, "batch_ms_mean": fe_e2e, "p50_batch_ms": fe_p50,
                          "p90_batch_ms": fe_p90, **fe_stages})
-    stem_ms = stem_stages["stem_ms"]
-    stem_plain_ms = cuda_ms(lambda: S.stem_plain(x, sw, bf16), 10)
-    # the deploy model's own layer 0 in bf16 (flip, cast and /255 included)
-    layer0 = ev_s.model.net.layer0
-    stem_library_ms = cuda_ms(
-        lambda: layer0((x.flip(-1).to(bf16) / 255.0).permute(0, 3, 1, 2)), 10)
-    c0 = sw.cout
-    stem_bound = bound(x.numel() + BATCH * (IMG // 2) ** 2 * c0 * 2 + 28 * c0 * 4,
-                       2 * 27 * c0 * BATCH * (IMG // 2) ** 2, "bf16")
     neck = {}
     for tag, mdl, srcs, w in (("maf-yolo-s", model, xs, nw), ("maf-yolo-n", n_model, xs_n, nw_n)):
         srcs32 = [t.float() for t in srcs]
@@ -888,19 +997,12 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
           f"fma_probe kernel disagrees with the plain f32 chain: {fma_err}")
     n_el = x_f.numel()
     fma_bound = bound(4 * n_el + 4 * P.TAPS, 2 * P.TAPS * n_el, "f32")
-    emit(phase="timing_kernels_s", stem_shape=[BATCH, IMG, IMG, 3], stem_ms=stem_ms,
-         stem_plain_ms=stem_plain_ms, model_layer0_ms=stem_library_ms,
-         stem_bound=stem_bound, fma_bound=fma_bound, neck_batch=BATCH, neck_h=cfg.h, neck=neck,
+    emit(phase="timing_kernels_s", fma_bound=fma_bound, neck_batch=BATCH, neck_h=cfg.h, neck=neck,
          fma_shape=list(P.SHAPE), fma_max_abs_err=fma_err,
          fma_tolerance="rtol 2^-7, atol 1e-5 * max|x| * sum|w| (one bf16 rounding)",
          fma=[{"name": n, "ms": ms, "tflops": tf, "gb_per_s": gb} for n, ms, tf, gb in fma])
     check(fma_launches > 0, "the FMA probe's tool run launched no kernel")
-    return {"kernels": [
-        {"name": "stem", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/stem.cu",
-         "replaces": "mafyolo_tpu/ops/stem_pallas.py:99", "launches": launches["stem"],
-         "max_abs_err": stem_err, "ms": stem_ms, "plain_ms": stem_plain_ms,
-         "bound_ms": stem_bound["bound_ms"], "bound_by": stem_bound["bound_by"],
-         "library_ms": stem_library_ms},
+    return {"stem_launches": launches["stem"], "shares": shares, "model": ev_s.model, "kernels": [
         {"name": "neck80", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/neck80.cu",
          "replaces": "mafyolo_tpu/ops/neck_pallas.py:259", "launches": launches["neck80"],
          "max_abs_err": neck_err, "ms": neck[name]["neck_ms"],
@@ -915,6 +1017,96 @@ def s_phases(dev, n_model, xs_n, nw_n, stem_err):
     ]}
 
 
+def m_phase(dev, shares):
+    """Phase 13: MAF-YOLO-M deploy served end to end through Evaler.predict,
+    bf16, M_BATCHES batches of bs32 uint8 @640, with the front-end and NMS
+    launch counts read around that run; card f32 against the CPU plain path
+    on 2 images; bf16 against f32 on one batch (into `shares`); img/s, p50
+    and the stage split. Returns the bf16 deploy model."""
+    import torch
+
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.ops.nms import fused_decode_nms
+    from mafyolo_tpu_torch.utils.sample import evaler, images, random_deploy
+    from mafyolo_tpu_torch.utils.timing import cuda_ms
+    name = "maf-yolo-m"
+    folded, _ = random_deploy(name, dev)
+    ev = evaler(name, folded, True, dev)
+    batches = [images(500 + i, BATCH).to(dev) for i in range(M_BATCHES)]
+    torch.cuda.synchronize()
+    FE.frontend_forward.launches = G.greedy_nms.launches = 0
+    outs = [ev.predict(bt) for bt in batches]
+    torch.cuda.synchronize()
+    launches = {"frontend": FE.frontend_forward.launches, "greedy_nms": G.greedy_nms.launches}
+    emit(phase="slice_m", model=name, dtype="bf16", batch=BATCH, img=IMG, batches=M_BATCHES,
+         launches=launches, dets_per_image_mean=float(
+             torch.cat([o["valid"].sum(1) for o in outs]).float().mean().item()))
+    check(launches["frontend"] == M_BATCHES and launches["greedy_nms"] > 0,
+          f"slice_m kernel launches {launches}")
+    check_dets(outs, BATCH, "slice_m")
+
+    ev32 = evaler(name, folded, False, dev)
+    two = images(12, 2)
+    n_cpu, m_cpu = match(evaler(name, folded, False, "cpu").predict(two),
+                         on_cpu(ev32.predict(two.to(dev))), 0.1)
+    emit(phase="slice_m_check", cpu_f32_dets_above_0p1=n_cpu, cpu_matched=m_cpu,
+         cpu_fraction=m_cpu / max(n_cpu, 1))
+    check(n_cpu >= 10 and m_cpu / n_cpu >= 0.95,
+          f"slice_m card f32 vs CPU: {m_cpu}/{n_cpu} detections matched")
+    x = batches[0]
+    shares["m_frontend"] = bf16_vs_f32("maf-yolo-m frontend", ev32.predict(x), outs[0],
+                                       ev32.forward(x), ev.forward(x))["share"]
+    del ev32
+
+    img_s, e2e, p50, p90 = route_timing(ev.predict, batches)
+    y = FE.frontend_forward(x, ev.fe_weights, torch.bfloat16)
+    heads = ev.model(y)
+    emit(phase="timing_m", model=name, dtype="bf16", batch=BATCH, img=IMG,
+         img_per_s=img_s, batch_ms_mean=e2e, p50_batch_ms=p50, p90_batch_ms=p90,
+         frontend_ms=cuda_ms(lambda: FE.frontend_forward(x, ev.fe_weights, torch.bfloat16), 10),
+         layers3_33_ms=cuda_ms(lambda: ev.model(y), 10),
+         decode_nms_ms=cuda_ms(lambda: fused_decode_nms(heads), 10))
+    return ev.model
+
+
+def stem_timing(dev, models):
+    """Phase 14: the stem kernel at bs32@640 for each {name: bf16 deploy model}: its
+    gates (stem_gate), then CUDA-event ms of the kernel (bf16 and f32), its
+    plain version and the model's own layer 0 in bf16 (flip, cast and /255
+    included), each call taking the next of enough copies of the input that
+    none is found in the 50 MB L2 (the input is 39 MB), and the bound.
+    Returns {name: record}."""
+    import torch
+
+    from mafyolo_tpu_torch.ops import stem as S
+    from mafyolo_tpu_torch.utils.sample import cold_sets, images, in_turn
+    from mafyolo_tpu_torch.utils.timing import cuda_ms
+    bf16 = torch.bfloat16
+    x = images(600, BATCH).to(dev)
+    sets = cold_sets((x,))
+    out = {}
+    for name, model in models.items():
+        sw = S.stem_build(model.net)
+        e32, e16, m16, ratio, same = stem_gate(x, sw, f"stem {name} bs{BATCH}@{IMG}")
+        layer0 = model.net.layer0
+        c0 = sw.cout
+        out[name] = {
+            "ms": cuda_ms(in_turn(lambda x: S.stem_conv_s2(x, sw, bf16), sets), 20),
+            "f32_ms": cuda_ms(in_turn(lambda x: S.stem_conv_s2(x, sw), sets), 10),
+            "plain_ms": cuda_ms(in_turn(lambda x: S.stem_plain(x, sw, bf16), sets), 10),
+            "library_ms": cuda_ms(in_turn(
+                lambda x: layer0((x.flip(-1).to(bf16) / 255.0).permute(0, 3, 1, 2)), sets), 20),
+            "max_abs_err_f32": e32, "max_abs_err_bf16": e16, "mean_abs_err_bf16": m16,
+            "bf16_err_over_one_rounding": ratio, "bit_identical": same,
+            **bound(x.numel() + BATCH * (IMG // 2) ** 2 * c0 * 2 + 28 * c0 * 4,
+                    2 * 27 * c0 * BATCH * (IMG // 2) ** 2, "bf16")}
+    emit(phase="timing_stem", shape=[BATCH, IMG, IMG, 3], input_sets=len(sets), stem=out,
+         note="ms, f32_ms, plain_ms (bf16 out) and library_ms: CUDA events around eager "
+              "calls on copies of the input taken in turn, none in L2")
+    return out
+
+
 def _leaf_errors(got, want, floor=1e-2):
     """Largest |got - want| of each leaf over max(max|want leaf|, floor * the
     largest leaf magnitude); got and want map names to tensors."""
@@ -924,7 +1116,7 @@ def _leaf_errors(got, want, floor=1e-2):
 
 
 def train_phases(dev):
-    """Phases 8-11: the train path on the card. Returns the dw_grad launches of
+    """Phases 15-18: the train path on the card. Returns the dw_grad launches of
     the train run, the summed dk ms per step, kernel and plain, and the
     kernel's largest error at B=32."""
     import numpy as np
@@ -947,7 +1139,7 @@ def train_phases(dev):
     from mafyolo_tpu_torch.utils.timing import cuda_ms, graph_ms
     cl = torch.channels_last
 
-    # ---- 8. train: N bs32@640 bf16 through the engine loop
+    # ---- 15. train: N bs32@640 bf16 through the engine loop
     cfg = load_config(os.path.join(HERE, "configs", "maf_yolo_n.py"))
     torch.manual_seed(0)
     model = build_model("maf-yolo-n", nc=NC).to(dev).to(memory_format=cl)
@@ -1004,7 +1196,7 @@ def train_phases(dev):
     check(launches == len(sites) * len(record),
           f"dw_grad launches {launches} != {len(sites)} DW sites x {len(record)} steps")
 
-    # ---- 9. train_check: one f32 step, card (kernel) vs CPU (plain), bs2@160
+    # ---- 16. train_check: one f32 step, card (kernel) vs CPU (plain), bs2@160
     variables = random_train_variables(tr.state.model.specs, seed=3)
     imgs, targets = train_batch(7, 2, 160, dev)
     grads, comps, bn = {}, {}, {}
@@ -1036,7 +1228,7 @@ def train_phases(dev):
     check(max(s_err.values()) <= 1e-2, "train_check BN running stats differ")
     del grads, bn
 
-    # ---- 10. train_to_serve: fold the EMA, predict on the card
+    # ---- 17. train_to_serve: fold the EMA, predict on the card
     ema_vars = state_dict_to_train_variables(tr.state.ema.state_dict())
     ev = Evaler(half=True, device=dev)
     ev.init_model("maf-yolo-n", ema_vars, nc=NC, folded=False)
@@ -1090,7 +1282,7 @@ def train_phases(dev):
                                           f"train form: {fold_err}")
     del ev, ev32, ref, got, want
 
-    # ---- 11. timing_train: CUDA events per stage over steady steps
+    # ---- 18. timing_train: CUDA events per stage over steady steps
     stages = ("forward", "loss", "backward", "optimizer")
     timed = []
 

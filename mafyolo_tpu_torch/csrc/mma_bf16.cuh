@@ -1,7 +1,8 @@
-// bf16 tensor-core fragments shared by the front-end and neck kernels:
+// bf16 tensor-core fragments shared by the front-end, neck and stem kernels:
 // `ldmatrix` for the A operand (activations, row-major in shared memory),
-// `mma.sync.aligned.m16n8k16` with f32 accumulation, and the bf16 pack
-// helpers of the epilogues.
+// `mma.sync.aligned.m16n8k16` with f32 accumulation (bf16 operands; fp16
+// for the stem, whose byte inputs and scaled weights want its 11 bits), and
+// the bf16 pack helpers of the epilogues.
 //
 // The B operand (weights) is packed once on the host in the order the
 // fragments are read (ops/_mma_pack.py:pack_b): for each 16-row K tile, for
@@ -40,6 +41,16 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same with fp16 operands (fragment layouts are those of bf16).
+__device__ __forceinline__ void mma_16816_f16(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -10,6 +10,7 @@ the card. No PyTorch headers are included, which keeps a build to seconds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -96,6 +97,13 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         lib.error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index) -> int:
+    """The number of SMs of CUDA device `index`."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def current_stream(device) -> int:

@@ -1,13 +1,13 @@
 """bf16 weight packs for the tensor-core kernels (csrc/mma_bf16.cuh).
 
 A 1x1 conv's [K, N] weight is the B operand of `mma.m16n8k16`. `pack_b`
-pads it with zeros to multiples of 16 both ways, casts it to bf16 and lays
-it out in the order the kernels read whole fragments: for each 16-row K
-tile, for each pair of 8-column N tiles, for each lane (g = lane // 4,
-t = lane % 4), the 8 values
+pads it with zeros to multiples of 16 both ways, casts it to bf16 (fp16
+for the stem kernel) and lays it out in the order the kernels read whole
+fragments: for each 16-row K tile, for each pair of 8-column N tiles, for
+each lane (g = lane // 4, t = lane % 4), the 8 values
     B[2t, g], B[2t+1, g], B[2t+8, g], B[2t+9, g]   of the first N tile,
     the same four of the second.
-`unpack_b` is its inverse (the padded [Kp, Np] bf16 matrix).
+`unpack_b` is its inverse (the padded [Kp, Np] matrix).
 
 With `interleave` (N a multiple of 32) the columns of each group of 32 are
 first permuted so that the 8 accumulator columns a lane holds over the four
@@ -41,13 +41,15 @@ def _interleave_perm(n: int) -> torch.Tensor:
     return v // 32 * 32 + 8 * t + 2 * j + e
 
 
-def pack_b(w: torch.Tensor, interleave: bool = False) -> torch.Tensor:
-    """f32 [K, N] -> flat bf16 [pad16(K) * pad16(N)] in fragment order."""
+def pack_b(w: torch.Tensor, interleave: bool = False,
+           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """f32 [K, N] -> flat bf16 (or `dtype`, fp16 for the stem)
+    [pad16(K) * pad16(N)] in fragment order."""
     k, n = w.shape
     if interleave:
         w = w[:, _interleave_perm(n).to(w.device)]
     kp, np_ = pad16(k), pad16(n)
-    w = F.pad(w.float(), (0, np_ - n, 0, kp - k)).to(torch.bfloat16)
+    w = F.pad(w.float(), (0, np_ - n, 0, kp - k)).to(dtype)
     # k = 16*kt + 8*half + 2*t + j ; n = 16*pair + 8*tile + g
     w = w.view(kp // 16, 2, 4, 2, np_ // 16, 2, 8)
     #   dims: kt, half, t, j, pair, tile, g -> kt, pair, g, t, tile, half, j

@@ -148,11 +148,6 @@ def dw_grad_plain(x, g, k: int, pad: int, dilation: int = 1):
     return torch.stack(taps, 1).reshape(x.shape[1], 1, k, k)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(x, g, k: int, pad: int, dilation: int, p: Plan | None, prof=None):
     """Check the arguments, cut the call (p, or the planner's cut when p is
     None) and launch the kernel."""
@@ -175,7 +170,8 @@ def _launch(x, g, k: int, pad: int, dilation: int, p: Plan | None, prof=None):
     if b == 0 or c == 0 or ho <= 0 or wo <= 0:
         return out.zero_()
     if p is None:
-        p = plan(b, c, ho, wo, k, pad, dilation, x.element_size(), _sms(x.device.index),
+        p = plan(b, c, ho, wo, k, pad, dilation, x.element_size(),
+                 _build.sm_count(x.device.index),
                  aligned=not (x.data_ptr() % 16 or g.data_ptr() % 16))
     part = _build.scratch(x.device, p.n_split * k * k * c * 4)
     lib = _build.load("dw_grad", _SIG)

@@ -4,6 +4,7 @@
     python -m mafyolo_tpu_torch.tools.tune_kernels neck
     python -m mafyolo_tpu_torch.tools.tune_kernels dw_grad [all]
     python -m mafyolo_tpu_torch.tools.tune_kernels nms
+    python -m mafyolo_tpu_torch.tools.tune_kernels stem
 
 `frontend`: the bf16 front-end kernel at bs32@640 for MAF-YOLO-N, -S and -M
 over a list of (tile rows, tile columns, threads), each checked against the
@@ -28,6 +29,13 @@ train step.
 boxes: the whole call, phase A (bit matrix) and phase B (scan) alone, and
 the plain version; then the same on the candidates of one bs32@640 predict of
 MAF-YOLO-N (utils/sample.py:random_deploy's weights).
+`stem`: the stem kernel at bs32@640 in bf16 for MAF-YOLO-N, -S and -M over
+band heights (output rows a band) and blocks an SM, each checked against the
+plain version first (within one bf16 rounding), timed by CUDA events on
+copies of the input taken in turn (none in L2), with the share of thread 0's
+clocks each phase takes (input wait, MMA, store, barriers); the last line
+sums each (rows, blocks an SM) over the three models, fastest first, beside
+the pair the wrapper uses (ops/stem.py:ROWS, BLOCKS_PER_SM).
 Weights and inputs are random, from a seed. Each prints one JSON object a
 line and needs a CUDA card.
 """
@@ -46,6 +54,7 @@ from mafyolo_tpu_torch.ops import _build
 from mafyolo_tpu_torch.ops import dw_grad as DG
 from mafyolo_tpu_torch.ops import frontend as FE
 from mafyolo_tpu_torch.ops import neck as NK
+from mafyolo_tpu_torch.ops import stem as ST
 from mafyolo_tpu_torch.utils import sample
 from mafyolo_tpu_torch.utils.bridge import random_folded_variables
 from mafyolo_tpu_torch.utils.timing import cuda_ms, graph_ms
@@ -53,6 +62,8 @@ from mafyolo_tpu_torch.utils.timing import cuda_ms, graph_ms
 BATCH, IMG = 32, 640
 PHASES = ("input", "l0", "l1", "cv_in", "expand", "dw", "project", "cv_out")
 TILES = [(16, 16, 512), (8, 16, 512), (8, 16, 256), (8, 8, 512), (8, 8, 256), (4, 8, 256)]
+STEM_ROWS, STEM_PER_SM = (1, 2, 3, 4, 6), (1, 2, 3, 4)
+STEM_PHASES = ("input", "mma", "store", "barriers")
 
 
 def _model(name, dev):
@@ -264,7 +275,44 @@ def nms(dev):
                           "m": boxes.shape[1], **rec}), flush=True)
 
 
-COMMANDS = {"frontend": frontend, "neck": neck, "dw_grad": dw_grad, "nms": nms}
+def stem(dev):
+    bf16 = torch.bfloat16
+    x = sample.images(0, BATCH).to(dev)
+    sets = sample.cold_sets((x,))
+    totals = {}
+    for name in ("maf-yolo-n", "maf-yolo-s", "maf-yolo-m"):
+        sw = ST.stem_build(_model(name, dev).model.net)
+        want = ST.stem_plain(x[:2], sw)
+        bound_ms = (x.numel() + BATCH * (IMG // 2) ** 2 * sw.cout * 2) / 3.35e12 * 1e3
+        print(json.dumps({"model": name, "picked": [ST.ROWS, ST.BLOCKS_PER_SM],
+                          "picked_ms": cuda_ms(sample.in_turn(
+                              lambda x: ST.stem_conv_s2(x, sw, bf16), sets), 20),
+                          "bound_ms": bound_ms}), flush=True)
+        for rows in STEM_ROWS:
+            for per_sm in STEM_PER_SM:
+                def run(x, prof=None):
+                    return ST._launch(x, sw, bf16, rows, per_sm, prof)
+                ratio = ((run(x)[:2].float() - want).abs()
+                         / (1e-6 + 2 ** -8 * want.abs())).max().item()
+                ms = cuda_ms(sample.in_turn(run, sets), 20)
+                clocks = torch.zeros(len(STEM_PHASES), dtype=torch.int64, device=dev)
+                run(x, clocks)
+                torch.cuda.synchronize()
+                share = (clocks.double() / clocks.sum()).tolist()
+                print(json.dumps({"model": name, "rows": rows, "blocks_per_sm": per_sm,
+                                  "ms": ms, "bound_share": bound_ms / ms,
+                                  "bf16_err_over_one_rounding": ratio, "ok": ratio <= 1,
+                                  "phase_share": dict(zip(STEM_PHASES, share))}), flush=True)
+                key = f"{rows}x{per_sm}"
+                ok = ratio <= 1 and totals.get(key, 0.0) is not None
+                totals[key] = totals.get(key, 0.0) + ms if ok else None
+    ranked = sorted(((k, v) for k, v in totals.items() if v is not None), key=lambda kv: kv[1])
+    print(json.dumps({"summed_ms_n_s_m": dict(ranked[:6]),
+                      "best_rows_blocks_per_sm": ranked[0][0],
+                      "wrapper": f"{ST.ROWS}x{ST.BLOCKS_PER_SM}"}), flush=True)
+
+
+COMMANDS = {"frontend": frontend, "neck": neck, "dw_grad": dw_grad, "nms": nms, "stem": stem}
 
 if __name__ == "__main__":
     args = sys.argv[1:]
@@ -274,5 +322,7 @@ if __name__ == "__main__":
         sys.exit(__doc__)
     if not torch.cuda.is_available():
         sys.exit("tune_kernels: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False     # the plain versions in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(torch.cuda.get_device_name(0), flush=True)
     COMMANDS[args[0]](torch.device("cuda:0"))

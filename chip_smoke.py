@@ -83,7 +83,22 @@ Phases, in order; any failure exits non-zero without a result line:
                 (values and determinism), and the summed dk time per step,
                 kernel against plain and against aten's convolution_backward
                 (weight gradient only), by eager calls and from a CUDA graph,
-                split by class of site (H, k).
+                split by class of site (H, k);
+ 19. eval       MAF-YOLO-N through the eval loop: 70 images of EVAL_SIZES
+                held in memory (utils/sample.py:ArrayDataset; the machine
+                has no image decoder) -> letterbox -> DataLoader (8
+                threads) -> Evaler.predict_model -> COCOEvaluator, the
+                front-end and NMS launches read around it. Gates: the card
+                in f32 against the CPU on 4 images (95% matched); run_eval
+                in f32 against labels made from the card's own f32
+                detections (AP50 >= 0.99, AP >= 0.95); rect batches (one
+                front-end launch a batch, the kernel against its plain
+                version at every shape met); bf16 run_eval on those labels
+                at least EVAL_BF16_AP_FLOOR; the short last batch (6
+                images) through both kernels, detections in each image.
+                Then the loop's img/s (bf16, loader included), its h2d /
+                infer + NMS / post split and the device's idle share (one
+                profiled loop), beside Evaler.predict alone.
 Each entry of the "kernels" line carries bound_ms, the least time the card
 could take: the larger of the bytes moved (inputs read once, outputs written
 once) over 3.35 TB/s and the operations over the peak rate of the operand
@@ -113,6 +128,17 @@ M_BATCHES = 4              # MAF-YOLO-M predicts at bs32@640
 # stem route, 24 -> 17 of 488); a route that broke would fall to 0.
 BF16_SHARE_FLOOR = {"n_frontend": 0.063, "n_stem": 0.020, "s_stem": 0.182,
                     "s_frontend": 0.187, "m_frontend": 0.309}
+# The eval phase's images (h, w) and how many of each: the long side at IMG
+# (no resize: the card's machine has no cv2), 70 in all, so bs 32 makes
+# batches of 32, 32 and 6; by aspect ratio the rect batches come out
+# 512x672, 672x672 and 672x448 at IMG 640.
+EVAL_SIZES = {(IMG, IMG): 14, (IMG * 3 // 4, IMG): 12, (IMG, IMG * 3 // 4): 12,
+              (IMG * 9 // 16, IMG): 20, (IMG, round(IMG / 1.5)): 12}
+# The least bf16 eval AP50 and AP against the f32 run's own detections: 0.6
+# x the first card run's, 0.5874 and 0.4714 (PERF.md §6, the eval loop's
+# entry; NVIDIA H100 80GB HBM3, 700.00 W), for the reason BF16_SHARE_FLOOR
+# gives.
+EVAL_BF16_AP_FLOOR = {"AP50": 0.352, "AP": 0.282}
 STEPS_PER_EPOCH = 3665     # COCO train2017 (117266 images) at bs 32
 TRAIN_STEPS = 4            # per epoch: an ATSS epoch, then a TAL epoch
 
@@ -822,6 +848,8 @@ def main():
     torch.set_grad_enabled(True)
     train = train_phases(dev)
     dk_err = max(dk_err, train["dk_err"])
+    torch.set_grad_enabled(False)
+    eval_phase(dev, folded, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -1107,6 +1135,214 @@ def stem_timing(dev, models):
     return out
 
 
+def as_predict(preds, ids):
+    """An eval loop's COCO-format detections of the images `ids` as a
+    predict()-style dict of padded CPU tensors (xyxy native boxes), one row
+    an image, in the loop's order."""
+    import torch
+    rows = {i: [] for i in ids}
+    for d in preds:
+        rows[d["image_id"]].append(d)
+    k = max([1] + [len(r) for r in rows.values()])
+    out = {"boxes": torch.zeros(len(ids), k, 4, dtype=torch.float64),
+           "scores": torch.zeros(len(ids), k, dtype=torch.float64),
+           "classes": torch.zeros(len(ids), k, dtype=torch.int64),
+           "valid": torch.zeros(len(ids), k, dtype=torch.bool)}
+    for r, i in enumerate(ids):
+        for j, d in enumerate(rows[i]):
+            x, y, w, h = d["bbox"]
+            out["boxes"][r, j] = torch.tensor([x, y, x + w, y + h], dtype=torch.float64)
+            out["scores"][r, j], out["classes"][r, j] = d["score"], d["category_id"]
+            out["valid"][r, j] = True
+    return out
+
+
+def eval_phase(dev, folded, card):
+    """Phase 19: MAF-YOLO-N (random_deploy weights `folded`) through the
+    port's eval loop on the card: utils/sample.py:ArrayDataset (EVAL_SIZES
+    images, long side IMG, 1-30 labelled rectangles each) -> letterbox ->
+    DataLoader (8 threads) -> Evaler.predict_model -> COCOEvaluator, with
+    the front-end and NMS launch counts read around it. Gates: 1. f32 card
+    against the CPU on the first 4 images; 2. in f32, against labels made
+    from the card's own f32 detections (score > 0.1, the best 100 of a
+    class in an image: what COCOEvaluator's maxDets keeps), run_eval gives
+    AP50 >= 0.99 and AP >= 0.95; 3. rect batches: one front-end launch a
+    batch, and the kernel against its plain version at every shape met;
+    4. bf16 run_eval AP50 and AP on gate 2's labels at least
+    EVAL_BF16_AP_FLOOR; 5. the short last batch launches both kernels and
+    every image of it has detections. Then the eval loop's img/s (bf16,
+    rect=False, loader included), its speed_result split and the device's
+    idle share over one more loop under the profiler, beside
+    Evaler.predict alone on the same batches."""
+    import numpy as np
+    import torch
+
+    from mafyolo_tpu_torch.core.evaler import Evaler, run_eval
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.utils.sample import ArrayDataset, eval_set, labels_from_detections
+    sizes = [hw for hw, n in EVAL_SIZES.items() for _ in range(n)]
+    sizes = [sizes[i] for i in np.random.default_rng(20).permutation(len(sizes))]
+    src = eval_set(20, sizes)
+    data = {"val": src, "nc": NC, "names": [str(c) for c in range(NC)]}
+    kw = dict(img_size=IMG, batch_size=BATCH, workers=8, plot_curve=False,
+              dataset_cls=ArrayDataset)
+
+    def launches():
+        return FE.frontend_forward.launches, G.greedy_nms.launches
+
+    def loop(source, half, rect=False, device=dev, **extra):
+        """(evaler, detections, [(batch shape, front-end launches, NMS
+        launches, images)] a batch) of one eval loop over source."""
+        ev = Evaler({**data, "val": source}, half=half, rect=rect, device=device,
+                    **{**kw, **extra})
+        loader = ev.init_data()
+        ev.init_model("maf-yolo-n", folded, NC, folded=True)
+        log = []
+
+        def counted():
+            for batch in loader:
+                log.append((batch[0].shape, *launches(), batch[0]))
+                yield batch
+            log.append((None, *launches(), None))
+        preds = ev.predict_model(counted())
+        per = [(sh, fe1 - fe0, nms1 - nms0, im) for (sh, fe0, nms0, im), (_, fe1, nms1, _)
+               in zip(log, log[1:])]
+        return ev, preds, per
+
+    torch.cuda.synchronize()
+    FE.frontend_forward.launches = G.greedy_nms.launches = 0
+    # gate 1: f32 card against the CPU plain versions, the first 4 images
+    first4 = {"images": src["images"][:4], "labels": src["labels"][:4]}
+    ev4, preds4, _ = loop(first4, False, batch_size=4)
+    _, preds4_cpu, _ = loop(first4, False, batch_size=4, device="cpu")
+    ids4 = [ev4.dataset.image_id(i) for i in range(4)]
+    n_cpu, m_cpu = match(as_predict(preds4_cpu, ids4), as_predict(preds4, ids4), 0.1)
+    check(n_cpu >= 10 and m_cpu / n_cpu >= 0.95,
+          f"eval card f32 vs CPU: {m_cpu}/{n_cpu} detections matched")
+
+    # gate 2 (with gate 5 on its short last batch): f32 labels from the
+    # card's own f32 detections, then run_eval against them
+    ev32, preds32, per32 = loop(src, False)
+    src2 = {"images": src["images"], "labels": labels_from_detections(preds32, ev32.dataset)}
+    n_labels = [len(lb) for lb in src2["labels"]]
+    m32 = run_eval("maf-yolo-n", folded, NC, {**data, "val": src2}, folded=True, half=False,
+                   device=dev, **kw)
+    check(m32["AP50"] >= 0.99 and m32["AP"] >= 0.95,
+          f"eval f32 against its own detections: AP50 {m32['AP50']}, AP {m32['AP']}")
+
+    # gate 3: rect batches; the front-end kernel at every shape met
+    evr, _, per_r = loop(src2, True, rect=True)
+    check(all(fe == 1 and nms >= 1 for _, fe, nms, _ in per_r),
+          f"rect eval launches a batch {[(s, fe, n) for s, fe, n, _ in per_r]}")
+    rect_shapes = {}
+    for sh, _, _, im in per_r:
+        rect_shapes.setdefault(tuple(sh[1:3]), im)
+    rect_err = {}
+    fe_path = FE.frontend_forward.launches     # the checks' launches are not the path's
+    for (h, w), im in rect_shapes.items():
+        x = torch.from_numpy(im).to(dev)
+        want = FE.frontend_plain(x, evr.fe_weights)
+        rect_err[f"{h}x{w}"] = kernel_vs_plain(
+            FE.frontend_forward(x, evr.fe_weights, torch.float32),
+            FE.frontend_forward(x, evr.fe_weights, torch.bfloat16), want,
+            f"eval rect frontend {h}x{w}")
+    FE.frontend_forward.launches = fe_path
+    check(len(rect_shapes) >= 2 and any(h != w for h, w in rect_shapes),
+          f"rect eval met shapes {list(rect_shapes)}")
+
+    # gate 4: bf16 against gate 2's labels
+    m16 = run_eval("maf-yolo-n", folded, NC, {**data, "val": src2}, folded=True, half=True,
+                   device=dev, **kw)
+    torch.cuda.synchronize()
+    path_launches = dict(zip(("frontend", "greedy_nms"), launches()))
+    n_batches = 1 + 4 * -(-len(src["images"]) // BATCH)   # gate 1's, then four loops
+    check(path_launches["frontend"] == n_batches and path_launches["greedy_nms"] >= n_batches,
+          f"eval path launches {path_launches} over {n_batches} batches")
+    for key, floor in EVAL_BF16_AP_FLOOR.items():
+        check(m16[key] >= floor, f"eval bf16 {key} {m16[key]} < {floor}")
+
+    # gate 5: the short last batch of the f32 loop
+    last_shape, last_fe, last_nms, _ = per32[-1]
+    last_ids = [ev32.dataset.image_id(i) for i in range(len(src["images"]) - last_shape[0],
+                                                         len(src["images"]))]
+    last_dets = [sum(d["image_id"] == i for d in preds32) for i in last_ids]
+    check(last_shape[0] == len(src["images"]) % BATCH and last_fe == 1 and last_nms >= 1
+          and min(last_dets) > 0,
+          f"short last batch {last_shape}: launches {last_fe}, {last_nms}; dets {last_dets}")
+
+    # the eval loop's speed, bf16 rect=False, loader included, beside
+    # Evaler.predict alone on the same batches (numpy in, and already on the card)
+    ev16 = Evaler({**data, "val": src2}, half=True, device=dev, **kw)
+    loader = ev16.init_data()
+    ev16.init_model("maf-yolo-n", folded, NC, folded=True)
+    ev16.predict_model(loader)                          # warm-up
+    loop_runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ev16.predict_model(loader)
+        wall = time.perf_counter() - t0
+        n, h2d, infer, post = ev16.speed_result
+        loop_runs.append({"img_per_s": n / wall, "wall_ms": wall * 1e3, "per_image_ms": {
+            "h2d": h2d / n, "infer_nms": infer / n, "post": post / n,
+            "loader_and_rest": (wall * 1e3 - h2d - infer - post) / n}})
+    # the device's busy time over one more loop under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev16.predict_model(loader)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, spans, _ = device_busy(prof)
+    check(busy_us > 0, "eval: the profiler saw no device activity")
+    profiled = {"wall_ms": prof_ms, "device_busy_ms": busy_us / 1e3,
+                "idle_share": 1 - busy_us / 1e3 / prof_ms, "device_ops": len(spans)}
+    batches = [b[0] for b in loader]
+    on_card = [torch.from_numpy(b).to(dev) for b in batches]
+    alone = {}
+    for tag, bs in (("numpy_in", batches), ("on_card", on_card)):
+        for b in bs:
+            ev16.predict(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bs:
+            ev16.predict(b)
+        torch.cuda.synchronize()
+        alone[tag] = len(src["images"]) / (time.perf_counter() - t0)
+    emit(phase="eval", model="maf-yolo-n", card=card, images=len(src["images"]),
+         sizes={f"{h}x{w}": n for (h, w), n in EVAL_SIZES.items()}, batch=BATCH, workers=8,
+         launches=path_launches, batches_on_card=n_batches,
+         gate1_cpu_f32_dets_above_0p1=n_cpu, gate1_matched=m_cpu,
+         gate2_labels=sum(n_labels), gate2_labels_per_image=[min(n_labels), max(n_labels)],
+         gate2_f32=m32,
+         gate3_rect_batches=[[list(s), fe, nms] for s, fe, nms, _ in per_r],
+         gate3_frontend_err={k: {"max_abs_err_f32": e[0], "max_abs_err_bf16": e[1],
+                                 "mean_abs_err_bf16": e[2]} for k, e in rect_err.items()},
+         gate4_bf16=m16, gate4_floor=EVAL_BF16_AP_FLOOR,
+         gate5_last_batch=[list(last_shape), last_fe, last_nms, last_dets],
+         loop_bf16=loop_runs, loop_profiled=profiled, predict_alone_img_per_s=alone,
+         note="loop img/s: images over predict_model's wall time (loader, h2d, predict, "
+              "post); per_image_ms from speed_result; loop_profiled: one more loop under "
+              "torch.profiler, the union of the device's spans against its wall time; "
+              "predict alone: the loop's batches through Evaler.predict, numpy in (h2d "
+              "included) and already on the card")
+
+
+def device_busy(prof):
+    """(the union of the device's kernel, copy and set spans in us, the
+    spans, us by name) of a torch.profiler run."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    return busy_us, spans, by_name
+
+
 def _leaf_errors(got, want, floor=1e-2):
     """Largest |got - want| of each leaf over max(max|want leaf|, floor * the
     largest leaf magnitude); got and want map names to tensors."""
@@ -1126,7 +1362,6 @@ def train_phases(dev):
     from mafyolo_tpu_torch.core.evaler import Evaler
     from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
     from mafyolo_tpu_torch.models import build_model
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from mafyolo_tpu_torch.ops import dw_grad as DG
     from mafyolo_tpu_torch.ops import frontend as FE
@@ -1324,15 +1559,8 @@ def train_phases(dev):
         p1.record()
         torch.cuda.synchronize()
     prof_ms = p0.elapsed_time(p1)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end, by_name = 0.0, float("-inf"), {}
-    for a, b, name in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-        by_name[name] = by_name.get(name, 0.0) + (b - a) / 2e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    busy_us, spans, by_name = device_busy(prof)
+    top = sorted(((n, t / 2e3) for n, t in by_name.items()), key=lambda kv: -kv[1])[:15]
     emit(phase="profile_train", steps=2, step_ms_profiled=prof_ms / 2,
          device_busy_ms_per_step=busy_us / 2e3, idle_share=1 - busy_us / 1e3 / prof_ms,
          device_ops_per_step=len(spans) / 2,

@@ -87,10 +87,12 @@ def _blocked_greedy_select(cand_boxes, off_boxes, scores, cls_idx,
 def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
                      conf_thres: float = 0.03, iou_thres: float = 0.65,
                      max_det: int = 300, pre_nms_topk: int = 2000,
-                     compact_k: int = 512):
+                     compact_k: int = 512, multi_label: bool = True):
     """Per-level NHWC head outputs -> dict of padded detections:
     boxes [B,max_det,4] xyxy px, scores [B,max_det], classes [B,max_det]
-    int64, valid [B,max_det] bool, score-descending per image.
+    int64, valid [B,max_det] bool, score-descending per image. With
+    multi_label=False an anchor competes only with its best class (all its
+    classes of that score), as the JAX package's inference CLI asks.
 
     Fast path: threshold compaction, exact while every image has <= compact_k
     above-threshold pairs and no anchor has more than two. Otherwise the whole
@@ -139,7 +141,7 @@ def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
     aslot = torch.arange(kp, device=dev)
     rows = torch.where((aslot < acount[:, None])[..., None],
                        _take(cls_scores, aidx), zero)             # [B, kp, nc]
-    rows = torch.where(rows > conf_thres, rows, zero)
+    rows = _competing(rows, conf_thres, multi_label)
     cls_iota = torch.arange(nc, device=dev).expand_as(rows)
     v1 = rows.amax(-1)
     c1 = torch.where(rows == v1[..., None], cls_iota, nc).amin(-1)
@@ -152,7 +154,7 @@ def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
     counts = torch.maximum(acount, overflow)                      # [B]
     if bool((counts > kp).any().item()):
         return _dense(cls_scores, reg_distri, conf_thres, iou_thres, max_det,
-                      ma, m, decode_boxes, offset)
+                      ma, m, decode_boxes, offset, multi_label)
 
     sc2 = torch.cat([v1, v2], 1)                                  # [B, 2kp]
     neg, order = torch.sort(-sc2, dim=-1, stable=True)
@@ -168,14 +170,21 @@ def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
     return dict(boxes=b, scores=s, classes=c, valid=v)
 
 
+def _competing(rows, conf_thres, multi_label):
+    """Scores [..., nc] of the pairs that compete: those above conf_thres,
+    and with multi_label=False only an anchor's best class; others 0."""
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    if not multi_label:
+        rows = torch.where(rows == rows.amax(-1, keepdim=True), rows, zero)
+    return torch.where(rows > conf_thres, rows, zero)
+
+
 def _dense(cls_scores, reg_distri, conf_thres, iou_thres, max_det, ma, m,
-           decode_boxes, offset):
+           decode_boxes, offset, multi_label):
     """Overflow path: top-ma anchors, then top-m pairs, blocked greedy NMS."""
     nc = cls_scores.shape[-1]
-    zero = torch.zeros((), dtype=cls_scores.dtype, device=cls_scores.device)
     _, anchor_top = _topk_stable(cls_scores.amax(-1), ma)        # [B, ma]
-    rows = _take(cls_scores, anchor_top)
-    rows = torch.where(rows > conf_thres, rows, zero)
+    rows = _competing(_take(cls_scores, anchor_top), conf_thres, multi_label)
     boxes_ma = decode_boxes(_take(reg_distri, anchor_top), anchor_top)
     top_scores, top_flat = _topk_stable(rows.reshape(rows.shape[0], -1), m)
     row_idx = torch.div(top_flat, nc, rounding_mode="floor")

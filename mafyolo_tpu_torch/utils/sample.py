@@ -1,14 +1,19 @@
 """Seeded inputs, weights and yardsticks that chip_smoke.py, the tuning tool
-and the card's tests share: images, an Evaler on random deploy weights whose
-heads give detections, the depthwise sites of a train graph with inputs for
-each, aten's weight gradient of the same conv (timed beside the dw_grad
-kernel, never called by the port), and the NMS kernel's timing inputs."""
+and the card's tests share: images, an eval set held in memory
+(ArrayDataset: the card's machine has no image decoder), an Evaler on random
+deploy weights whose heads give detections, the depthwise sites of a train
+graph with inputs for each, aten's weight gradient of the same conv (timed
+beside the dw_grad kernel, never called by the port), and the NMS kernel's
+timing inputs."""
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from mafyolo_tpu_torch.core.evaler import Evaler
+from mafyolo_tpu_torch.data.datasets import DetectionDataset
 from mafyolo_tpu_torch.models.blocks import DWConv
 from mafyolo_tpu_torch.models.graph import parse_graph
 from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
@@ -24,6 +29,75 @@ def images(seed, b, h=IMG, w=IMG):
     """uint8 BGR images [b,h,w,3] from a seed, on the CPU."""
     return torch.from_numpy(np.random.default_rng(seed).integers(
         0, 256, (b, h, w, 3), dtype=np.uint8))
+
+
+class ArrayDataset(DetectionDataset):
+    """The port's DetectionDataset over images held in memory. Its first
+    argument, in place of an image directory, is {"images": [uint8 BGR HWC
+    arrays], "labels": [(n, 5) cls + normalized xywh arrays]}; image i is
+    named f"{i:06d}.bmp", so its image_id is i. Only the label scan and
+    load_image are its own: letterbox, rect sorting, get_sample, coco_gt,
+    image_id and the loader are the dataset's. Images are held at their
+    load size (long side img_size or test_load_size): nothing is resized."""
+
+    def _load_labels(self):
+        imgs = self.img_dir["images"]
+        self.img_paths = [f"{i:06d}.bmp" for i in range(len(imgs))]
+        shapes = np.array([(im.shape[1], im.shape[0]) for im in imgs], np.float64)
+        labels = [np.asarray(lb, np.float32).reshape(-1, 5) for lb in self.img_dir["labels"]]
+        return labels, [[] for _ in imgs], shapes
+
+    def load_image(self, index, force_load_size=None):
+        im = self.img_dir["images"][int(Path(self.img_paths[index]).stem)]
+        h0, w0 = im.shape[:2]
+        if max(h0, w0) != (force_load_size or self.img_size):
+            raise ValueError(f"ArrayDataset holds images at their load size, not {h0}x{w0}")
+        return im, (h0, w0), (h0, w0)
+
+
+def eval_set(seed, sizes, nc=NC, max_boxes=30):
+    """{"images", "labels"} for ArrayDataset: an image of each (h, w) in
+    sizes, seeded uniform bytes with 1..max_boxes filled rectangles of
+    random classes, each labelled with its rectangle, then +-8 of noise a
+    pixel (as tests/helpers.py:make_synth_dataset textures its images: no
+    flat region, so no two anchors tie)."""
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(0, 256, (nc, 3), dtype=np.uint8)
+    images, labels = [], []
+    for h, w in sizes:
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        n = int(rng.integers(1, max_boxes + 1))
+        cls = rng.integers(0, nc, n)
+        bw, bh = rng.integers(w // 16, w // 3, n), rng.integers(h // 16, h // 3, n)
+        x1, y1 = rng.integers(0, w - bw), rng.integers(0, h - bh)
+        for c, x, y, bx, by in zip(cls, x1, y1, bw, bh):
+            img[y:y + by, x:x + bx] = palette[c]
+        img = np.clip(img.astype(np.int16) + rng.integers(-8, 9, (h, w, 3)), 0, 255)
+        images.append(img.astype(np.uint8))
+        labels.append(np.stack([cls, (x1 + bw / 2) / w, (y1 + bh / 2) / h, bw / w, bh / h],
+                               1).astype(np.float32))
+    return {"images": images, "labels": labels}
+
+
+def labels_from_detections(preds, dataset, min_score=0.1, max_per_class=100):
+    """Labels for dataset's images (in image-id order, as eval_set gives
+    them) made from an eval loop's COCO-format detections: those with score
+    > min_score, the best max_per_class of each class in an image (what
+    COCOEvaluator's maxDets of 100 keeps), as normalized xywh in native
+    image space. Scored against them, the same detections give AP 1: every
+    detection that COCOEvaluator keeps and that outscores a label is one."""
+    wh = {dataset.image_id(i): dataset.shapes[i] for i in range(len(dataset))}
+    rows = {i: [] for i in wh}
+    per_class = {}
+    for d in sorted(preds, key=lambda d: -d["score"]):
+        key = (d["image_id"], d["category_id"])
+        if d["score"] > min_score and per_class.get(key, 0) < max_per_class:
+            per_class[key] = per_class.get(key, 0) + 1
+            x, y, bw, bh = d["bbox"]
+            w, h = wh[d["image_id"]]
+            rows[d["image_id"]].append([d["category_id"], (x + bw / 2) / w, (y + bh / 2) / h,
+                                        bw / w, bh / h])
+    return [np.array(rows[i], np.float32).reshape(-1, 5) for i in sorted(rows)]
 
 
 def evaler(name, folded, half, device):

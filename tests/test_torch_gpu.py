@@ -287,3 +287,48 @@ def test_new_wrappers_reject_bad_input(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         P.fma_chain(torch.zeros(64, dtype=torch.bfloat16, device=cuda_device)[1:],
                     torch.ones(P.TAPS, device=cuda_device))
+
+
+def test_eval_loop_rect_batches(cuda_device):
+    """The eval loop on the card at rect shapes: ArrayDataset letterboxes
+    (numpy border) into 128x160 and 160x128 batches; the front-end kernel
+    on each batch against its plain version (f32 1e-3, bf16 0.05 with mean
+    < 0.01), and Evaler(half=False).predict_model on the card against the
+    CPU's: equal detections per image, each CPU detection matched by a card
+    detection of its class, score within 1e-3 and box within 0.05 px."""
+    from mafyolo_tpu_torch.core.evaler import Evaler
+    from mafyolo_tpu_torch.data.loader import DataLoader
+    from mafyolo_tpu_torch.utils.sample import ArrayDataset, eval_set
+    src = eval_set(3, [(96, 128), (72, 128), (128, 96), (128, 85)] * 2, nc=7)
+    folded = random_folded("maf-yolo-n", 7, seed=3)
+    for i in (31, 32, 33):
+        pred = folded["params"]["net"][f"layer{i}"]["cls_pred"]
+        pred["bias"] = pred["bias"] - 3.3
+    preds = {}
+    for dev in (cuda_device, "cpu"):
+        ev = Evaler(img_size=128, half=False, device=dev)
+        ev.init_model("maf-yolo-n", folded, 7, folded=True)
+        ev.dataset = ArrayDataset(src, img_size=128, rect=True, batch_size=4, pad=0.5)
+        loader = DataLoader(ev.dataset, 4, False, workers=2)
+        if dev is cuda_device:
+            shapes = []
+            for imgs, _, _ in loader:
+                shapes.append(imgs.shape[1:3])
+                x = torch.from_numpy(imgs).to(dev)
+                want = F.frontend_plain(x, ev.fe_weights)
+                torch.testing.assert_close(F.frontend_forward(x, ev.fe_weights), want,
+                                           atol=1e-3, rtol=1e-3)
+                got16 = F.frontend_forward(x, ev.fe_weights, torch.bfloat16).float()
+                torch.testing.assert_close(got16, want, atol=0.05, rtol=0.05)
+                assert (got16 - want).abs().mean() < 0.01
+            assert shapes == [(128, 160), (160, 128)]
+        before = F.frontend_forward.launches
+        preds[str(dev)] = ev.predict_model(loader)
+        assert F.frontend_forward.launches - before == (2 if dev is cuda_device else 0)
+    got, want = preds[str(cuda_device)], preds["cpu"]
+    assert len(got) == len(want) >= 20
+    for d in want:
+        cand = [g for g in got if g["image_id"] == d["image_id"]
+                and g["category_id"] == d["category_id"] and abs(g["score"] - d["score"]) <= 1e-3
+                and np.abs(np.subtract(g["bbox"], d["bbox"])).max() <= 0.05]
+        assert cand, d

@@ -115,6 +115,33 @@ def test_fused_decode_nms_matches_jax(case, kw):
                                np.asarray(want["boxes"])[v], atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("case,kw", [
+    ("fast", dict(hot=0.03)),
+    ("overflow", dict(hot=0.35)),
+    ("ties", dict(hot=0.05, ties=True)),
+])
+def test_fused_decode_nms_single_label_matches_jax(case, kw):
+    """multi_label=False (the inference CLI's NMS): each anchor keeps its
+    best class only: equal to JAX's fused_decode_nms(multi_label=False) on
+    both paths, and other than the multi_label=True result."""
+    outs = _head_outs(8, **kw)
+    nms_kw = dict(strides=(8, 16, 32), conf_thres=0.03, iou_thres=0.65, max_det=100,
+                  multi_label=False)
+    want = jax_fused([tuple(jnp.asarray(t) for t in o) for o in outs], **nms_kw)
+    got = fused_decode_nms([tuple(torch.from_numpy(t) for t in o) for o in outs], **nms_kw)
+    v = np.asarray(want["valid"])
+    assert v.sum(1).min() > 10
+    np.testing.assert_array_equal(got["valid"].numpy(), v)
+    np.testing.assert_array_equal(got["classes"].numpy()[v], np.asarray(want["classes"])[v])
+    np.testing.assert_allclose(got["scores"].numpy()[v], np.asarray(want["scores"])[v],
+                               atol=1e-4)
+    np.testing.assert_allclose(got["boxes"].numpy()[v], np.asarray(want["boxes"])[v],
+                               atol=1e-4, rtol=1e-5)
+    both = fused_decode_nms([tuple(torch.from_numpy(t) for t in o) for o in outs],
+                            **{**nms_kw, "multi_label": True})
+    assert not torch.equal(both["scores"], got["scores"])
+
+
 @pytest.mark.slow
 def test_plain_greedy_mask_matches_pallas_kernel():
     from mafyolo_tpu.ops.pallas_nms import pallas_greedy_nms

@@ -68,10 +68,11 @@ Phases, in order; any failure exits non-zero without a result line:
                 then its time (bf16 and f32), its plain version's and the
                 model's own layer 0's, each call on the next of enough
                 copies of the input that none is in L2;
- 15. train      MAF-YOLO-N train steps at bs32@640 in bf16 through the port's
-                engine loop (accumulate 2: accumulate-only and apply steps
-                alternate; ATSS epoch, then TAL epoch), with the dw_grad
-                launch count read around that run;
+ 15. train      MAF-YOLO-N train steps at bs32@640 in bf16 through the
+                Trainer's step loop on a COCO epoch's step schedule
+                (accumulate 2: accumulate-only and apply steps alternate;
+                ATSS epoch, then TAL epoch) on batches made on the card, with
+                the dw_grad launch count read around that run;
  16. train_check  one f32 step of N at bs2@160 on the card against the CPU
                 plain path: loss components, every gradient, BN stats;
  17. train_to_serve  the EMA folded into the deploy model, Evaler.predict;
@@ -99,6 +100,15 @@ Phases, in order; any failure exits non-zero without a result line:
                 Then the loop's img/s (bf16, loader included), its h2d /
                 infer + NMS / post split and the device's idle share (one
                 profiled loop), beside Evaler.predict alone.
+ 20. trainer    MAF-YOLO-N trained through the Trainer end to end with
+                --device-aug: 72 images held in memory (batches of 32, 32
+                and 8) through the loader and device_augment into the step,
+                the eval phase's images evaluated by run_eval on the EMA,
+                checkpoints; Trainer A runs epochs 0-1, Trainer B resumes
+                from A's last_ckpt.npck and trains epochs 2-3, evaluates
+                and strips (trainer_phase's docstring lists the gates).
+                Then the trainer's img/s, device_augment's and the step's
+                ms, the device's idle share over a profiled epoch.
 Each entry of the "kernels" line carries bound_ms, the least time the card
 could take: the larger of the bytes moved (inputs read once, outputs written
 once) over 3.35 TB/s and the operations over the peak rate of the operand
@@ -141,6 +151,10 @@ EVAL_SIZES = {(IMG, IMG): 14, (IMG * 3 // 4, IMG): 12, (IMG, IMG * 3 // 4): 12,
 EVAL_BF16_AP_FLOOR = {"AP50": 0.352, "AP": 0.282}
 STEPS_PER_EPOCH = 3665     # COCO train2017 (117266 images) at bs 32
 TRAIN_STEPS = 4            # per epoch: an ATSS epoch, then a TAL epoch
+TRAIN_IMAGES = 72          # the trainer phase's set: batches of 32, 32 and 8
+# device_augment on the card against the CPU on the same draw: the f32
+# bilinear taps differ by rounding only (one 8-bit level is 1/255)
+DEVICE_AUG_TOL = 1.0 / 255
 
 
 def fail(msg):
@@ -850,6 +864,9 @@ def main():
     dk_err = max(dk_err, train["dk_err"])
     torch.set_grad_enabled(False)
     eval_phase(dev, folded, card)
+    torch.set_grad_enabled(True)
+    trainer_phase(dev, card)
+    torch.set_grad_enabled(False)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -1328,6 +1345,267 @@ def eval_phase(dev, folded, card):
               "included) and already on the card")
 
 
+def trainer_phase(dev, card):
+    """Phase 20: MAF-YOLO-N trained through the port's Trainer on the card:
+    --device-aug, configs/maf_yolo_n.py's solver and data_aug, bs BATCH @
+    IMG in bf16, TRAIN_IMAGES images held in memory (utils/sample.py:
+    train_set; batches of 32, 32 and 8) and the eval phase's 70 val images.
+    Trainer A (epochs 4, no stop-aug tail) runs epochs 0-1 through
+    train_one_epoch + eval_and_save; Trainer B resumes from A's
+    last_ckpt.npck and train()s epochs 2-3 (3 is the first TAL epoch),
+    evaluating at the last and stripping. Gates: 1. dw_grad launches 53 a
+    step (short batch included), and each eval one front-end launch a batch
+    and at least as many NMS launches; 2. device_augment of the first batch
+    on the card against the same function on the CPU on the same draw:
+    images within DEVICE_AUG_TOL, label counts equal, boxes within 1e-3 px;
+    3. B's state after resume equal to A's at the end of epoch 1, bit for
+    bit (params, BN stats, momentum, EMA, updates) and B.start_epoch 2; 4.
+    every step's loss finite, parameters moved on every apply step and on
+    no other (in warm-up the weight lr is 0 to 4e-6, below the f32 step of
+    most kernels: the biases, at lr 0.1, move); 5.
+    last_ckpt.npck each epoch and best_ckpt.npck exactly when an eval
+    beat the best AP before it (the JAX rule); after strip_models no opt,
+    no EMA and fp16 model leaves, and the stripped checkpoint evaluates
+    through load_checkpoint -> eval_variables -> run_eval. Then A runs
+    epoch 2 under the profiler (the device's idle share) and epoch 3 timed
+    (img/s, loader and device aug included); device_augment's and the
+    step's ms by CUDA events; whether B's EMA gives a box above conf 0.03
+    (recorded, not gated)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mafyolo_tpu_torch.core.engine import Trainer
+    from mafyolo_tpu_torch.core.evaler import Evaler, run_eval
+    from mafyolo_tpu_torch.data import device_aug as DA
+    from mafyolo_tpu_torch.models.reparam import fold_variables
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.utils.bridge import state_dict_to_train_variables
+    from mafyolo_tpu_torch.utils.checkpoint import eval_variables, load_checkpoint
+    from mafyolo_tpu_torch.utils.config import Config
+    from mafyolo_tpu_torch.utils.sample import ArrayDataset, dw_sites, eval_set, train_set
+    from mafyolo_tpu_torch.utils.timing import cuda_ms
+
+    cfg = Config.fromfile(os.path.join(HERE, "configs", "maf_yolo_n.py"))
+    sizes = [hw for hw, n in EVAL_SIZES.items() for _ in range(n)]
+    sizes = [sizes[i] for i in np.random.default_rng(20).permutation(len(sizes))]
+    data = {"train": train_set(40, TRAIN_IMAGES, size=IMG), "val": eval_set(20, sizes), "nc": NC,
+            "names": [str(c) for c in range(NC)]}
+    eval_batches = -(-len(sizes) // min(2 * BATCH, 64))
+    tmp = tempfile.TemporaryDirectory()
+    dir_a, dir_b = os.path.join(tmp.name, "a"), os.path.join(tmp.name, "b")
+
+    def make(save_dir, **kw):
+        args = SimpleNamespace(img_size=IMG, batch_size=BATCH, epochs=4, workers=8, seed=0,
+                               save_dir=save_dir, device_aug=True, stop_aug_last_n_epoch=0,
+                               tensorboard=False, **kw)
+        return Trainer(args, cfg, data, device=dev, dataset_cls=ArrayDataset)
+
+    def launches():
+        return {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
+                "greedy_nms": G.greedy_nms.launches}
+
+    a = make(dir_a)
+    n_sites = len(dw_sites(a.state.model, IMG, dev))
+    check(a.max_stepnum == 3 and a.device_aug["mosaic"] == 1.0,
+          f"trainer: {a.max_stepnum} steps an epoch, device_aug {a.device_aug}")
+
+    # gate 2: the first batch through device_augment on the card and on the
+    # CPU, on one draw
+    imgs, targets, _ = next(iter(a.train_loader))
+    x, t = torch.from_numpy(imgs).to(dev), torch.from_numpy(targets).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(DA.aug_seed(0, 0))
+    drawn = DA.draw(*x.shape[:3], gen, **a.device_aug)
+    card_img, card_lbl = DA.apply(x, t, drawn)
+    cpu_img, cpu_lbl = DA.apply(x.cpu(), t.cpu(), DA.params_to(drawn, "cpu"))
+    card_lbl = card_lbl.cpu()
+    img_err = (card_img.cpu() - cpu_img).abs().max().item()
+    live = cpu_lbl[..., 0] >= 0
+    counts_equal = torch.equal(card_lbl[..., 0] >= 0, live)
+    box_err_px = ((card_lbl - cpu_lbl)[live][:, 1:].abs().max().item() * IMG
+                  if counts_equal else float("inf"))
+    emit(phase="trainer_device_aug_check", batch=list(x.shape), card=card,
+         mosaic=int(drawn["do_mo"].sum().item()), labels_in=int((t[..., 0] >= 0).sum().item()),
+         labels_out=int(live.sum().item()), max_abs_err_img=img_err, max_box_err_px=box_err_px,
+         tolerance=f"images {DEVICE_AUG_TOL}, equal label rows, boxes 1e-3 px")
+    check(img_err <= DEVICE_AUG_TOL, f"device_augment card vs CPU: image error {img_err}")
+    check(counts_equal and box_err_px <= 1e-3,
+          f"device_augment card vs CPU: labels differ ({counts_equal}, {box_err_px} px)")
+    del card_img, cpu_img
+
+    # epochs 0-1 of A, every step watched (gates 1, 4, 5)
+    record = []
+    step_fn = a.train_step
+
+    def watched(state, imgs, targets, lr_bnw, lr_w, lr_b, momentum, do_apply, use_atss,
+                mark=None):
+        params = [(n, p) for n, p in state.model.named_parameters()]
+        before = [p.detach().clone() for _, p in params]
+        met = step_fn(state, imgs, targets, lr_bnw, lr_w, lr_b, momentum, do_apply,
+                      use_atss, mark=mark)
+        moved = sum(not torch.equal(p, b) for (_, p), b in zip(params, before))
+        record.append({"batch": int(imgs.shape[0]), "applied": bool(do_apply),
+                       "lr_weight": lr_w, "lr_bias": lr_b, "use_atss": use_atss,
+                       "loss": {k: float(v) for k, v in met.items()},
+                       "params_moved": moved, "params": len(params)})
+        return met
+
+    a.train_step = watched
+    DG.dw_grad.launches = FE.frontend_forward.launches = G.greedy_nms.launches = 0
+    ckpts, evals = [], []
+    for epoch in (0, 1):
+        before = launches()
+        a.train_one_epoch(epoch)
+        torch.cuda.synchronize()
+        mid = launches()
+        t0 = time.perf_counter()
+        metrics = a.eval_and_save(epoch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = launches()
+        last = load_checkpoint(os.path.join(dir_a, "last_ckpt.npck"))
+        ckpts.append({"epoch": epoch, "last_epoch": last["epoch"],
+                      "best": os.path.exists(os.path.join(dir_a, "best_ckpt.npck"))})
+        evals.append({"epoch": epoch, "metrics": metrics, "wall_s": wall,
+                      "train_launches": {k: mid[k] - before[k] for k in mid},
+                      "eval_launches": {k: after[k] - mid[k] for k in mid}})
+    a.train_step = step_fn
+    # the state at the end of epoch 1, which last_ckpt.npck holds
+    snap = {"model": {k: v.clone() for k, v in a.state.model.state_dict().items()},
+            "ema": {k: v.clone() for k, v in a.state.ema.state_dict().items()},
+            "mom": {k: v.clone() for k, v in a._momentum().items()},
+            "updates": a.state.updates}
+    ema_vars = state_dict_to_train_variables(snap["ema"])
+    t0 = time.perf_counter()
+    fold_variables(a.state.model.specs, ema_vars)
+    fold_s = time.perf_counter() - t0
+
+    steps = len(record)
+    short = [r["batch"] for r in record]
+    train_dw = sum(e["train_launches"]["dw_grad"] for e in evals)
+    emit(phase="trainer_epochs_0_1", card=card, steps=steps, batches=short,
+         dw_sites=n_sites, dw_grad_launches=train_dw, evals=evals, checkpoints=ckpts,
+         fold_ema_s=fold_s, steps_record=record)
+    check(short == [BATCH, BATCH, TRAIN_IMAGES % BATCH] * 2, f"trainer batches {short}")
+    check(train_dw == n_sites * steps, f"trainer: dw_grad launches {train_dw} != "
+                                       f"{n_sites} sites x {steps} steps")
+    check(all(e["train_launches"]["frontend"] == 0 for e in evals),
+          "trainer: a train step launched the front-end kernel")
+    check(evals[0]["metrics"] is None and evals[1]["metrics"] is not None,
+          "trainer: eval schedule (epoch 1 of 4 evaluates, epoch 0 does not)")
+    el = evals[1]["eval_launches"]
+    check(el["frontend"] == eval_batches and el["greedy_nms"] >= eval_batches
+          and el["dw_grad"] == 0, f"trainer eval launches {el} over {eval_batches} batches")
+    for r in record:
+        check(all(np.isfinite(v) for v in r["loss"].values()), f"trainer: loss {r['loss']}")
+        check(r["params_moved"] > 0 if r["applied"] else r["params_moved"] == 0,
+              f"trainer: parameters moved {r['params_moved']} on a step applied={r['applied']}")
+    check(sum(r["applied"] for r in record) == a.state.updates > 0, "trainer: updates")
+    check([c["last_epoch"] for c in ckpts] == [0, 1], f"trainer: last_ckpt {ckpts}")
+    check(ckpts[1]["best"] == (a.best_ap > 0), f"trainer: best_ckpt {ckpts}, AP {a.best_ap}")
+
+    # A goes on: epoch 2 under the profiler (the device's idle share), epoch
+    # 3 timed (img/s, the loader and device aug included)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        a.train_one_epoch(2)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, spans, by_name = device_busy(prof)
+    check(busy_us > 0, "trainer: the profiler saw no device activity")
+    t0 = time.perf_counter()
+    a.train_one_epoch(3)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    # the loader alone over the same epoch (host only), then device_augment
+    # and a whole step (augment included) by CUDA events
+    t0 = time.perf_counter()
+    n_loaded = sum(len(b[0]) for b in a.train_loader)
+    loader_s = time.perf_counter() - t0
+    aug_ms = cuda_ms(lambda: DA.device_augment(x, t, gen, **a.device_aug), 10)
+    step_ms = cuda_ms(lambda: a._step(3, 3, (x, t)), 5)
+    top = sorted(((n, us / 1e3) for n, us in by_name.items()), key=lambda kv: -kv[1])[:10]
+    emit(phase="trainer_timing", card=card, model="maf-yolo-n", dtype="bf16", batch=BATCH,
+         img=IMG, images=TRAIN_IMAGES, epoch_s=epoch_s, img_per_s=TRAIN_IMAGES / epoch_s,
+         loader_alone_s=loader_s, loader_alone_img_per_s=n_loaded / loader_s,
+         device_augment_ms=aug_ms, step_ms=step_ms,
+         profiled_epoch={"wall_ms": prof_ms, "device_busy_ms": busy_us / 1e3,
+                         "idle_share": 1 - busy_us / 1e3 / prof_ms, "device_ops": len(spans),
+                         "top_ms": [[n[:80], v] for n, v in top]},
+         eval_wall_s=evals[1]["wall_s"], eval_ap50=evals[1]["metrics"]["AP50"],
+         eval_ap=evals[1]["metrics"]["AP"], fold_ema_s=fold_s,
+         note="img_per_s: one epoch of train_one_epoch by the host clock to a synchronize "
+              "(loader, copy, device aug, 3 steps); loader_alone: the same epoch's batches "
+              "from the loader with no step; step_ms: a train step on a full batch "
+              "(device aug included) by CUDA events; idle share: one more epoch under "
+              "torch.profiler, the union of the device's spans against its wall time")
+    steps_per_epoch = a.max_stepnum
+    del a
+
+    # gate 3: B resumes from A's checkpoint of epoch 1
+    b = make(dir_b, resume=os.path.join(dir_a, "last_ckpt.npck"))
+    diff = [k for k, v in b.state.model.state_dict().items() if not torch.equal(v, snap["model"][k])]
+    diff += [f"ema {k}" for k, v in b.state.ema.state_dict().items()
+             if not torch.equal(v, snap["ema"][k])]
+    diff += [f"momentum {k}" for k, v in b._momentum().items() if not torch.equal(v, snap["mom"][k])]
+    emit(phase="trainer_resume", card=card, start_epoch=b.start_epoch, updates=b.state.updates,
+         updates_a=snap["updates"], entries_differing=len(diff), first=diff[:3])
+    check(b.start_epoch == 2 and b.state.updates == snap["updates"] and not diff,
+          f"trainer resume: start {b.start_epoch}, updates {b.state.updates}, differs {diff[:3]}")
+    del snap
+    before = launches()
+    best = b.train()
+    torch.cuda.synchronize()
+    b_launches = {k: v - before[k] for k, v in launches().items()}
+
+    # whether B's EMA gives boxes above conf 0.03 (recorded)
+    ev = Evaler(half=True, device=dev)
+    ev.init_model("maf-yolo-n", state_dict_to_train_variables(b.state.ema.state_dict()), NC)
+    out = ev.predict(x)
+    boxes_above = int(out["valid"].sum().item())
+    max_score = max(o[1].float().max().item() for o in ev.forward(x))
+
+    # gate 5: the stripped checkpoints evaluate
+    path = os.path.join(dir_b, "last_ckpt.npck")
+    stripped = load_checkpoint(path)
+    leaves = [v for _, v in _tree_items(stripped["model"])]
+    check("opt" not in stripped and stripped["ema"] is None and stripped["updates"] == 0
+          and leaves and all(v.dtype == np.float16 for v in leaves),
+          "trainer: last_ckpt.npck is not stripped")
+    before = launches()
+    m_stripped = run_eval("maf-yolo-n", eval_variables(stripped), NC, data, folded=False,
+                          img_size=IMG, rect=True, batch_size=64, half=True, device=dev,
+                          dataset_cls=ArrayDataset)
+    torch.cuda.synchronize()
+    s_launches = {k: v - before[k] for k, v in launches().items()}
+    emit(phase="trainer_b", card=card, epochs=[2, 3], launches=b_launches, best_ap=best,
+         files=sorted(os.listdir(dir_b)), stripped_eval=m_stripped,
+         stripped_eval_launches=s_launches, ema_boxes_above_conf_0p03=boxes_above,
+         ema_max_score=max_score, note="ema boxes: B's EMA through Evaler.predict on the "
+                                       "first train batch (bf16, conf 0.03), recorded only")
+    check(b_launches["dw_grad"] == n_sites * 2 * steps_per_epoch,
+          f"trainer B: dw_grad launches {b_launches}")
+    check(b_launches["frontend"] == eval_batches and s_launches["frontend"] == eval_batches
+          and s_launches["greedy_nms"] >= eval_batches,
+          f"trainer B evals: launches {b_launches}, stripped {s_launches}")
+    check(all(np.isfinite(v) for v in m_stripped.values()), f"stripped eval {m_stripped}")
+    tmp.cleanup()
+
+
+def _tree_items(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
 def device_busy(prof):
     """(the union of the device's kernel, copy and set spans in us, the
     spans, us by name) of a torch.profiler run."""
@@ -1358,7 +1636,10 @@ def train_phases(dev):
     import numpy as np
     import torch
 
-    from mafyolo_tpu_torch.core.engine import Trainer, load_config
+    import tempfile
+    from types import SimpleNamespace
+
+    from mafyolo_tpu_torch.core.engine import Schedule, Trainer
     from mafyolo_tpu_torch.core.evaler import Evaler
     from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
     from mafyolo_tpu_torch.models import build_model
@@ -1369,18 +1650,23 @@ def train_phases(dev):
     from mafyolo_tpu_torch.utils.bridge import (random_train_variables,
                                                 state_dict_to_train_variables,
                                                 train_variables_to_state_dict)
-    from mafyolo_tpu_torch.utils.sample import (cold_sets, dw_library, dw_site_inputs,
-                                                dw_sites, in_turn)
+    from mafyolo_tpu_torch.utils.config import Config
+    from mafyolo_tpu_torch.utils.sample import (ArrayDataset, cold_sets, dw_library,
+                                                dw_site_inputs, dw_sites, in_turn, train_set)
     from mafyolo_tpu_torch.utils.timing import cuda_ms, graph_ms
     cl = torch.channels_last
 
-    # ---- 15. train: N bs32@640 bf16 through the engine loop
-    cfg = load_config(os.path.join(HERE, "configs", "maf_yolo_n.py"))
-    torch.manual_seed(0)
-    model = build_model("maf-yolo-n", nc=NC).to(dev).to(memory_format=cl)
+    # ---- 15. train: N bs32@640 bf16 through the Trainer's step loop, on the
+    # step schedule of a COCO epoch (its loader is not run here: phase 20)
+    cfg = Config.fromfile(os.path.join(HERE, "configs", "maf_yolo_n.py"))
+    with tempfile.TemporaryDirectory() as tmp:
+        args = SimpleNamespace(img_size=IMG, batch_size=BATCH, epochs=300, workers=8, seed=0,
+                               save_dir=tmp, tensorboard=False)
+        tr = Trainer(args, cfg, {"train": train_set(30, BATCH), "nc": NC}, device=dev,
+                     dataset_cls=ArrayDataset)
+    tr.schedule = Schedule(cfg.solver, BATCH, 300, STEPS_PER_EPOCH)
+    model = tr.state.model
     sites = dw_sites(model, IMG, dev)
-    tr = Trainer(model, cfg, nc=NC, img_size=IMG, batch_size=BATCH, epochs=300,
-                 max_stepnum=STEPS_PER_EPOCH, dtype=torch.bfloat16)
     batches = [train_batch(200 + i, BATCH, IMG, dev) for i in range(2 * TRAIN_STEPS)]
     # nonzero conv kernels: weight decay moves each of them on every apply
     # step (BN params may sit still: the zero-initialized preds stop every
@@ -1408,15 +1694,15 @@ def train_phases(dev):
 
     torch.cuda.synchronize()
     DG.dw_grad.launches = 0
-    metrics = (tr.train_one_epoch(2, batches[:TRAIN_STEPS], mark=mark)
-               + tr.train_one_epoch(3, batches[TRAIN_STEPS:], mark=mark))
+    metrics = (tr._train_steps(2, batches[:TRAIN_STEPS], mark=mark)
+               + tr._train_steps(3, batches[TRAIN_STEPS:], mark=mark))
     torch.cuda.synchronize()
     launches = DG.dw_grad.launches
     losses = [{k: float(v) for k, v in m.items()} for m in metrics]
     ema_moved = sum(not torch.equal(v, ema0[k]) for k, v in tr.state.ema.state_dict().items())
     emit(phase="train", model="maf-yolo-n", dtype="bf16", batch=BATCH, img=IMG,
          steps=len(metrics), epochs=[2, 3], use_atss=[True, False],
-         accumulate=tr.plan(0, 2)[0]["accumulate"], dw_sites=len(sites),
+         accumulate=tr.schedule.lrs(0, 2)["accumulate"], dw_sites=len(sites),
          dw_grad_launches=launches, updates=tr.state.updates,
          ema_entries_moved=ema_moved, steps_record=record, losses=losses)
     for r, lo in zip(record, losses):
@@ -1526,10 +1812,10 @@ def train_phases(dev):
         ev_.record()
         timed[-1][stage] = ev_
 
-    tr.train_one_epoch(4, batches[:2])                          # warm-up
+    tr._train_steps(4, batches[:2])                             # warm-up
     torch.cuda.reset_peak_memory_stats()
     for i, (im, tg) in enumerate(batches[2:8]):
-        sched, do_apply = tr.plan(2 + i, 4)
+        sched, do_apply = tr.schedule.plan(2 + i, 4)
         start = torch.cuda.Event(enable_timing=True)
         start.record()
         timed.append({"start": start, "applied": do_apply})
@@ -1553,7 +1839,7 @@ def train_phases(dev):
         p0, p1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         p0.record()
         for i, (im, tg) in enumerate(batches[:2]):
-            sched, do_apply = tr.plan(8 + i, 4)
+            sched, do_apply = tr.schedule.plan(8 + i, 4)
             tr.train_step(tr.state, im, tg, sched["lr_bnw"], sched["lr_weight"],
                           sched["lr_bias"], sched["momentum"], do_apply, False)
         p1.record()

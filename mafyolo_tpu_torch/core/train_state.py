@@ -11,6 +11,10 @@ the EMA. On an accumulate-only step params, momentum and EMA stay put; the
 BN running stats move on every step (train_state.py:181-207). The JAX flat
 buffers (core/flatten.py) are a TPU device and have no counterpart here.
 
+With device_aug, the step augments the batch on its device first
+(data/device_aug.py), drawing from a generator seeded by (seed, rng_step);
+device_augment does the BGR -> RGB flip and the /255 itself.
+
 Loss normalization: by the batch's target_scores_sum, the single-device
 large-batch semantics of the JAX step (train_state.py:11-15).
 """
@@ -21,6 +25,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from mafyolo_tpu_torch.data.device_aug import aug_seed, device_augment
 from mafyolo_tpu_torch.models.losses import detection_loss
 from mafyolo_tpu_torch.solver.build import GROUP_BIAS, GROUP_BNW, GROUP_WEIGHT, build_optimizer
 from mafyolo_tpu_torch.utils.ema import ModelEMA
@@ -47,23 +52,33 @@ def init_train_state(model: torch.nn.Module, *, weight_decay: float,
 
 def make_train_step(*, num_classes: int, img_size: int,
                     strides: Sequence[int] = (8, 16, 32), reg_max: int = 16,
-                    iou_type: str = "giou", dtype: torch.dtype = torch.float32):
+                    iou_type: str = "giou", dtype: torch.dtype = torch.float32,
+                    device_aug: Optional[Dict] = None, seed: int = 0):
     """-> step(state, imgs_u8, targets, lr_bnw, lr_w, lr_b, momentum,
     do_apply, use_atss, mark=None) -> metrics (loss and its components,
     detached tensors on the device; nothing waits for the device).
 
     imgs_u8 [B,H,W,3] uint8 BGR and targets [B,N,5] on the model's device.
     dtype is the compute dtype: bf16 runs the forward under autocast, f32
-    runs it plain. mark(stage), if given, is called after each stage
-    ("forward", "loss", "backward", "optimizer") for timing."""
+    runs it plain. device_aug, if given, is device_augment's hyps (the
+    Trainer's `device_aug` dict). mark(stage), if given, is called after
+    each stage ("augment" with device_aug, "forward", "loss", "backward",
+    "optimizer") for timing."""
 
     def step(state: TrainState, imgs_u8, targets, lr_bnw: float, lr_w: float,
              lr_b: float, momentum: float, do_apply: bool, use_atss: bool,
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         model = state.model.train()
         dev = imgs_u8.device.type
-        # BGR uint8 -> RGB float in [0, 1]
-        imgs = imgs_u8.flip(-1).float() / 255.0
+        if device_aug is not None:
+            gen = torch.Generator(device=imgs_u8.device)
+            gen.manual_seed(aug_seed(seed, state.rng_step))
+            imgs, targets = device_augment(imgs_u8, targets, gen, **device_aug)
+            if mark:
+                mark("augment")
+        else:
+            # BGR uint8 -> RGB float in [0, 1]
+            imgs = imgs_u8.flip(-1).float() / 255.0
         with torch.autocast(dev, dtype=dtype, enabled=dtype != torch.float32):
             outs = model(imgs)
         if mark:

@@ -1,4 +1,4 @@
-"""Dataset scan, label cache and the val-time sample (counterpart of
+"""Dataset scan, label cache and the per-sample pipeline (counterpart of
 mafyolo_tpu/data/datasets.py:32-414).
 
 An images dir with a sibling labels dir of YOLO txt files (class cx cy w h
@@ -7,23 +7,28 @@ package's `.labels_cache.npz` in the image directory, same key and layout,
 so either package reads what the other wrote. `get_sample` returns numpy
 (BGR HWC uint8 + (n,5) labels); padding happens at collation (loader.py).
 
-`cv2` (decode, resize) and PIL (header check) are imported inside the
-functions that use them: the card's machine has neither, and a dataset that
-overrides `_load_labels` and `load_image` (utils/sample.py:ArrayDataset)
-needs neither. Train-time augmentation (mosaic, mixup, affine, HSV, flips)
-comes with the trainer.
+The train-time sample (augment=True) is the JAX one: mosaic of four tiles
+(then copy-paste and a random affine) or letterbox + random affine, then
+cached-mosaic mixup or dynamic mixup, HSV and flips, each drawn from the
+loader's per-(seed, epoch, index) generator. `cv2` (decode, resize, the
+augmentations) and PIL (header check) are imported inside the functions
+that use them: the card's machine has neither, and a dataset that overrides
+`_load_labels` and `load_image` (utils/sample.py:ArrayDataset) needs
+neither for the val sample, nor for the letterbox-only train sample that
+device augmentation (data/device_aug.py) takes.
 """
 from __future__ import annotations
 
 import hashlib
 import os
 import os.path as osp
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from mafyolo_tpu_torch.data.augment import letterbox
+from mafyolo_tpu_torch.data import augment as A
 from mafyolo_tpu_torch.utils.events import LOGGER
 
 IMG_FORMATS = (".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".dng", ".webp")
@@ -96,15 +101,18 @@ def _cache_key(paths: List[str]) -> str:
 
 
 class DetectionDataset:
-    """Random-access detection dataset; the val-time sample pipeline."""
+    """Random-access detection dataset with the train- and val-time sample
+    pipelines."""
 
     def __init__(self, img_dir: str, img_size: int = 640, augment: bool = False,
                  hyp: Optional[Dict] = None, rect: bool = False, batch_size: int = 16,
                  stride: int = 32, pad: float = 0.0, class_names=None,
-                 task: str = "train", rect_bucket: int = 0):
+                 max_cached_images: int = 40, task: str = "train",
+                 albument: bool = False, rect_bucket: int = 0):
         self.img_dir = img_dir
         self.img_size = img_size
         self.augment = augment
+        self.albument = albument
         self.hyp = dict(hyp or {})
         self.rect = rect
         self.rect_bucket = rect_bucket
@@ -113,6 +121,9 @@ class DetectionDataset:
         self.task = task
         self.class_names = class_names
         self.labels, self.segments, self.shapes = self._load_labels()
+        self.max_cached_images = max_cached_images
+        self._mosaic_cache: List = []
+        self._cache_lock = threading.Lock()
         if rect:
             self.batch_indices = np.floor(
                 np.arange(len(self.img_paths)) / batch_size).astype(int)
@@ -253,32 +264,100 @@ class DetectionDataset:
             im = cv2.resize(im, (int(w0 * r), int(h0 * r)), interpolation=interp)
         return im, (h0, w0), im.shape[:2]
 
-    def get_sample(self, index: int, rng: np.random.Generator):
-        """-> (img BGR HWC uint8, labels (n,5) cls + normalized xywh, shapes).
+    def __getstate__(self):
+        # a spawned loader worker gets the dataset without the lock and with
+        # a mosaic cache of its own, as a forked one would
+        state = dict(self.__dict__)
+        state.pop("_cache_lock")
+        state["_mosaic_cache"] = []
+        return state
 
-        The val branch only; rng is the loader's per-sample generator, which
-        the train-time augmentations will draw from."""
-        if self.augment:
-            raise NotImplementedError(
-                "train-time augmentation (mosaic, mixup, affine, HSV) comes with "
-                "the trainer (ROADMAP Queue 1 item 5)")
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._cache_lock = threading.Lock()
+
+    def _tiles(self, indices):
+        imgs, hs, ws, labels, segments = [], [], [], [], []
+        for i in indices:
+            img, _, (h, w) = self.load_image(i)
+            imgs.append(img)
+            hs.append(h)
+            ws.append(w)
+            labels.append(self.labels[i])
+            segments.append(self.segments[i])
+        return imgs, hs, ws, labels, segments
+
+    def get_mosaic(self, index, rng: np.random.Generator):
+        """4-image mosaic: this image and 3 random ones, in random order."""
+        indices = [index] + list(rng.integers(0, len(self.img_paths), 3))
+        rng.shuffle(indices)
+        imgs, hs, ws, labels, segments = self._tiles(indices)
+        return A.mosaic_augmentation(self.img_size, imgs, hs, ws, labels, self.hyp,
+                                     rng, segments=segments)
+
+    def get_cache_mosaic(self, index, rng: np.random.Generator):
+        """Mosaic built from a bounded rolling cache of decoded tiles: append
+        the current one, top up to 4, evict FIFO past max_cached_images,
+        then mosaic over [current] + 3 cached picks."""
+        img, _, (h, w) = self.load_image(index)
+        entry = (img, h, w, self.labels[index], self.segments[index])
+        with self._cache_lock:
+            cache = self._mosaic_cache
+            cache.append(entry)
+            if len(cache) <= 4:
+                for j in rng.integers(0, len(self.img_paths), 3):
+                    im2, _, (h2, w2) = self.load_image(int(j))
+                    cache.append((im2, h2, w2, self.labels[j], self.segments[j]))
+            elif len(cache) > self.max_cached_images:
+                cache.pop(0)
+            picks = [-1] + list(rng.integers(0, len(cache) - 1, 3))
+            tiles = [cache[k] for k in picks]
+        imgs = [t[0] for t in tiles]
+        hs = [t[1] for t in tiles]
+        ws = [t[2] for t in tiles]
+        lbs = [t[3] for t in tiles]
+        return A.mosaic_augmentation(self.img_size, imgs, hs, ws, lbs, self.hyp, rng)
+
+    def get_sample(self, index: int, rng: np.random.Generator):
+        """-> (img BGR HWC uint8, labels (n,5) cls + normalized xywh, shapes|None).
+
+        rng is the loader's per-(seed, epoch, index) generator; the
+        train-time branches draw from it in the JAX package's order."""
         hyp = self.hyp
-        img, (h0, w0), (h, w) = self.load_image(index, hyp.get("test_load_size"))
-        shape = (self.batch_shapes[self.batch_indices[index]]
-                 if self.rect else self.img_size)
-        img, ratio, pad = letterbox(
-            img, shape, auto=False, scaleup=False,
-            return_int=bool(hyp.get("letterbox_return_int", False)))
-        shapes = ((h0, w0), ((h * ratio / h0, w * ratio / w0), pad))
-        labels = self.labels[index].copy()
-        if labels.size:
-            ws_, hs_ = w * ratio, h * ratio
-            boxes = np.copy(labels[:, 1:])
-            boxes[:, 0] = ws_ * (labels[:, 1] - labels[:, 3] / 2) + pad[0]
-            boxes[:, 1] = hs_ * (labels[:, 2] - labels[:, 4] / 2) + pad[1]
-            boxes[:, 2] = ws_ * (labels[:, 1] + labels[:, 3] / 2) + pad[0]
-            boxes[:, 3] = hs_ * (labels[:, 2] + labels[:, 4] / 2) + pad[1]
-            labels[:, 1:] = boxes
+        shapes = None
+        if self.augment and rng.random() < hyp.get("mosaic", 0):
+            img, labels = self.get_mosaic(index, rng)
+            if rng.random() < hyp.get("mixup", 0):
+                j = int(rng.integers(0, len(self.img_paths)))
+                img2, labels2 = self.get_cache_mosaic(j, rng)
+                img, labels = A.mixup(img, labels, img2, labels2, rng)
+            elif (len(labels) <= hyp.get("dy_label", 0)
+                  and rng.random() < hyp.get("dy_mixup", 0)):
+                j = int(rng.integers(0, len(self.img_paths)))
+                img2, labels2 = self.get_cache_mosaic(j, rng)
+                img, labels = A.mixup(img, labels, img2, labels2, rng)
+        else:
+            img, (h0, w0), (h, w) = self.load_image(index, hyp.get("test_load_size"))
+            shape = (self.batch_shapes[self.batch_indices[index]]
+                     if self.rect else self.img_size)
+            img, ratio, pad = A.letterbox(
+                img, shape, auto=False, scaleup=self.augment,
+                return_int=bool(hyp.get("letterbox_return_int", False)))
+            shapes = ((h0, w0), ((h * ratio / h0, w * ratio / w0), pad))
+            labels = self.labels[index].copy()
+            if labels.size:
+                ws_, hs_ = w * ratio, h * ratio
+                boxes = np.copy(labels[:, 1:])
+                boxes[:, 0] = ws_ * (labels[:, 1] - labels[:, 3] / 2) + pad[0]
+                boxes[:, 1] = hs_ * (labels[:, 2] - labels[:, 4] / 2) + pad[1]
+                boxes[:, 2] = ws_ * (labels[:, 1] + labels[:, 3] / 2) + pad[0]
+                boxes[:, 3] = hs_ * (labels[:, 2] + labels[:, 4] / 2) + pad[1]
+                labels[:, 1:] = boxes
+            if self.augment:
+                img, labels = A.random_affine(
+                    img, labels, None, rng, degrees=hyp["degrees"],
+                    translate=hyp["translate"], scale=hyp["scale"],
+                    shear=hyp["shear"], new_shape=(self.img_size, self.img_size))
 
         if len(labels):
             h, w = img.shape[:2]
@@ -292,6 +371,21 @@ class DetectionDataset:
             labels[:, 1:] = boxes
         else:
             labels = np.zeros((0, 5), np.float32)
+
+        if self.augment:
+            if self.albument:
+                img, labels = A.albumentations_transform(
+                    img, labels, size=self.img_size, rng=rng)
+            A.augment_hsv(img, rng, hgain=hyp["hsv_h"], sgain=hyp["hsv_s"],
+                          vgain=hyp["hsv_v"])
+            if rng.random() < hyp.get("flipud", 0):
+                img = np.flipud(img)
+                if len(labels):
+                    labels[:, 2] = 1 - labels[:, 2]
+            if rng.random() < hyp.get("fliplr", 0):
+                img = np.fliplr(img)
+                if len(labels):
+                    labels[:, 1] = 1 - labels[:, 1]
         return np.ascontiguousarray(img), labels.astype(np.float32), shapes
 
     # ---------- eval-side COCO ground truth ----------

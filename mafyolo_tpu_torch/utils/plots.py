@@ -1,14 +1,16 @@
-"""Eval-side plots: PR / metric-confidence curves, the confusion-matrix
-heatmap and the val-prediction overlay (counterpart of
-mafyolo_tpu/utils/plots.py:63-192).
+"""Plots: the train-batch grid, PR / metric-confidence curves, the
+confusion-matrix heatmap and the val-prediction overlay (counterpart of
+mafyolo_tpu/utils/plots.py:24-192).
 
 matplotlib and cv2 are imported inside the functions that use them: without
 matplotlib (the card's machine has none) the curve and matrix plots return
-None, as the JAX ones do; `plot_val_pred` reads image files with cv2. The
-train-batch grid comes with the trainer.
+None, as the JAX ones do; `plot_train_batch` draws and `plot_val_pred`
+reads image files with cv2.
 """
 from __future__ import annotations
 
+import math
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -18,6 +20,47 @@ def class_colors(n: int = 256) -> np.ndarray:
     """Deterministic bright BGR palette, one row per class id."""
     rng = np.random.default_rng(0)
     return rng.integers(64, 256, (n, 3)).astype(np.int32)
+
+
+def plot_train_batch(images, targets, paths: Optional[Sequence[str]] = None,
+                     names: Optional[Sequence[str]] = None,
+                     max_size: int = 1920, max_subplots: int = 16):
+    """[B,H,W,3] uint8 BGR + [B,N,5] padded labels (cls, normalized xywh;
+    cls -1 pads) -> an annotated grid, BGR uint8."""
+    import cv2
+    images = np.asarray(images)
+    targets = np.asarray(targets)
+    if images.dtype != np.uint8:
+        images = (images * 255).clip(0, 255).astype(np.uint8)
+    bs, h, w = images.shape[:3]
+    bs = min(bs, max_subplots)
+    ns = int(np.ceil(bs ** 0.5))
+    colors = class_colors()
+    mosaic = np.full((ns * h, ns * w, 3), 255, np.uint8)
+    for i in range(bs):
+        x, y = w * (i // ns), h * (i % ns)
+        mosaic[y:y + h, x:x + w] = images[i]
+    scale = max_size / ns / max(h, w)
+    if scale < 1:
+        h, w = math.ceil(scale * h), math.ceil(scale * w)
+        mosaic = cv2.resize(mosaic, (w * ns, h * ns))
+    for i in range(bs):
+        x, y = w * (i // ns), h * (i % ns)
+        cv2.rectangle(mosaic, (x, y), (x + w, y + h), (255, 255, 255), 2)
+        if paths:
+            cv2.putText(mosaic, os.path.basename(paths[i])[:40], (x + 5, y + 15),
+                        cv2.FONT_HERSHEY_COMPLEX, 0.5, (220, 220, 220), 1)
+        t = targets[i]
+        t = t[t[:, 0] >= 0]
+        for cls, cx, cy, bw, bh in t:
+            b = [int((cx - bw / 2) * w) + x, int((cy - bh / 2) * h) + y,
+                 int((cx + bw / 2) * w) + x, int((cy + bh / 2) * h) + y]
+            color = tuple(int(c) for c in colors[int(cls) % len(colors)])
+            label = str(names[int(cls)]) if names else str(int(cls))
+            cv2.rectangle(mosaic, (b[0], b[1]), (b[2], b[3]), color, 1)
+            cv2.putText(mosaic, label, (b[0], b[1] - 5),
+                        cv2.FONT_HERSHEY_COMPLEX, 0.5, color, 1)
+    return mosaic
 
 
 def _plt():

@@ -1,5 +1,5 @@
 """Seeded inputs, weights and yardsticks that chip_smoke.py, the tuning tool
-and the card's tests share: images, an eval set held in memory
+and the card's tests share: images, eval and train sets held in memory
 (ArrayDataset: the card's machine has no image decoder), an Evaler on random
 deploy weights whose heads give detections, the depthwise sites of a train
 graph with inputs for each, aten's weight gradient of the same conv (timed
@@ -77,6 +77,13 @@ def eval_set(seed, sizes, nc=NC, max_boxes=30):
         labels.append(np.stack([cls, (x1 + bw / 2) / w, (y1 + bh / 2) / h, bw / w, bh / h],
                                1).astype(np.float32))
     return {"images": images, "labels": labels}
+
+
+def train_set(seed, n, size=IMG, nc=NC):
+    """{"images", "labels"} for ArrayDataset: n square images of `size`
+    made as eval_set makes them (1-30 labelled rectangles each, textured),
+    the train set of the card's trainer runs."""
+    return eval_set(seed, [(size, size)] * n, nc=nc)
 
 
 def labels_from_detections(preds, dataset, min_score=0.1, max_per_class=100):

@@ -332,3 +332,43 @@ def test_eval_loop_rect_batches(cuda_device):
                 and g["category_id"] == d["category_id"] and abs(g["score"] - d["score"]) <= 1e-3
                 and np.abs(np.subtract(g["bbox"], d["bbox"])).max() <= 0.05]
         assert cand, d
+
+
+def test_device_aug_train_step_and_eval_and_save(cuda_device, tmp_path):
+    """One device-aug train step on the card through the Trainer (N at 128
+    px, bs 4 of 5 images: a full and a short batch; mosaic, dy_mixup, HSV,
+    flips in the step) and eval_and_save: device_augment on the card against
+    the CPU on one draw (images within 1/255, equal label rows, boxes within
+    1e-3 px), a dw_grad launch at each of the 53 depthwise sites a step,
+    finite losses, the front-end kernel once per eval batch, last_ckpt.npck
+    written."""
+    from types import SimpleNamespace
+
+    from mafyolo_tpu_torch.core.engine import Trainer
+    from mafyolo_tpu_torch.data import device_aug as DA
+    from mafyolo_tpu_torch.utils.config import Config
+    from mafyolo_tpu_torch.utils.sample import ArrayDataset, eval_set, train_set
+    args = SimpleNamespace(img_size=128, batch_size=4, epochs=2, workers=2, seed=0,
+                           save_dir=str(tmp_path), device_aug=True, tensorboard=False,
+                           eval_interval=1)
+    data = {"train": train_set(0, 5, size=128, nc=7),
+            "val": eval_set(1, [(128, 128), (96, 128)], nc=7), "nc": 7}
+    tr = Trainer(args, Config.fromfile("configs/maf_yolo_n.py"), data, device=cuda_device,
+                 dataset_cls=ArrayDataset)
+    imgs, targets, _ = next(iter(tr.train_loader))
+    x, t = torch.from_numpy(imgs).to(cuda_device), torch.from_numpy(targets).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    p = DA.draw(*x.shape[:3], gen, **tr.device_aug)
+    gi, gl = DA.apply(x, t, p)
+    ci, cl = DA.apply(x.cpu(), t.cpu(), DA.params_to(p, "cpu"))
+    assert (gi.cpu() - ci).abs().max().item() <= 1 / 255
+    live = cl[..., 0] >= 0
+    assert torch.equal(gl.cpu()[..., 0] >= 0, live)
+    assert (gl.cpu() - cl)[live].abs().max().item() * 128 <= 1e-3
+    DG.dw_grad.launches = F.frontend_forward.launches = 0
+    tr.train_one_epoch(0)
+    torch.cuda.synchronize()
+    assert DG.dw_grad.launches == 53 * 2 and tr.state.updates == 2
+    metrics = tr.eval_and_save(0)
+    assert F.frontend_forward.launches == 1 and set(metrics) >= {"AP", "AP50"}
+    assert (tmp_path / "last_ckpt.npck").exists()

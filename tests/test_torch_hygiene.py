@@ -92,16 +92,53 @@ assert metrics["AP50"] > 0.9 and metrics["P"] > 0 and metrics["mAP50"] > 0, metr
                    timeout=300)
 
 
+def test_device_aug_trainer_runs_without_decoders(tmp_path):
+    """The card's train path: Trainer(device="cpu", dataset_cls=ArrayDataset)
+    with --device-aug on 6 images of 64 px (MAF-YOLO-N, bs 4: a full and a
+    short batch) -> one epoch (device mosaic, dy_mixup, HSV, flips) ->
+    eval_and_save (run_eval on the EMA, last_ckpt.npck) -> strip, with cv2,
+    PIL, yaml, matplotlib and tensorboard blocked (an import of any of them
+    raises)."""
+    code = BLOCK_DECODERS + "sys.modules['tensorboard'] = None\n" + f"""
+import os
+from types import SimpleNamespace
+from mafyolo_tpu_torch.core.engine import Trainer
+from mafyolo_tpu_torch.utils.checkpoint import load_checkpoint
+from mafyolo_tpu_torch.utils.config import Config
+from mafyolo_tpu_torch.utils.sample import ArrayDataset, eval_set, train_set
+args = SimpleNamespace(img_size=64, batch_size=4, epochs=1, workers=2, seed=0,
+                       save_dir={str(tmp_path)!r}, device_aug=True, bf16=0,
+                       tensorboard=False, stop_aug_last_n_epoch=0)
+data = {{"train": train_set(0, 6, size=64, nc=3), "val": eval_set(1, [(64, 64), (48, 64)], nc=3),
+         "nc": 3, "names": ["a", "b", "c"]}}
+tr = Trainer(args, Config.fromfile("configs/maf_yolo_n.py"), data, device="cpu",
+             dataset_cls=ArrayDataset)
+assert tr.device_aug["mosaic"] == 1.0 and tr.max_stepnum == 2
+tr.train_one_epoch(0)
+metrics = tr.eval_and_save(0)
+tr.strip_models()
+assert tr.state.rng_step == 2 and "AP50" in metrics, metrics
+ck = load_checkpoint(os.path.join({str(tmp_path)!r}, "last_ckpt.npck"))
+assert ck["ema"] is None and "opt" not in ck
+"""
+    subprocess.run([sys.executable, "-c", code], check=True, env=_env(), cwd=ROOT,
+                   timeout=300)
+
+
 def test_unported_inputs_raise(tmp_path):
-    """A reference .pt checkpoint and a train-time (augment=True) sample
-    raise NotImplementedError, naming the trainer's slice."""
+    """A reference .pt checkpoint raises NotImplementedError naming its
+    ROADMAP item, as do the train CLI's unported options (the Trainer's are
+    in tests/test_torch_trainer.py)."""
+    from mafyolo_tpu_torch.tools import train as train_cli
     from mafyolo_tpu_torch.utils.checkpoint import load_checkpoint
-    from mafyolo_tpu_torch.utils.sample import ArrayDataset, eval_set
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         load_checkpoint(str(tmp_path / "yolov6n.pt"))
-    ds = ArrayDataset(eval_set(0, [(64, 64)], nc=3), img_size=64, augment=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ds.get_sample(0, None)
+    for argv, item in ((["--quant", "--calib"], 9), (["--quant"], 9),
+                       (["--device-count", "2"], 8)):
+        args = train_cli.get_args_parser().parse_args(
+            argv + ["--output-dir", str(tmp_path / "runs")])
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            train_cli.main(args)
 
 
 def test_port_does_not_import_the_smoke_script():
@@ -139,3 +176,15 @@ def test_evaler_defaults_to_the_card():
     from mafyolo_tpu_torch.core.evaler import Evaler
     assert Evaler().device == torch.device("cuda")
     assert Evaler(device="cpu").device == torch.device("cpu")
+
+
+def test_trainer_and_train_cli_default_to_the_card():
+    """Trainer(args, cfg, data_dict) and tools/train.py train on the card
+    unless told device="cpu" / --device cpu."""
+    import inspect
+
+    from mafyolo_tpu_torch.core.engine import Trainer
+    from mafyolo_tpu_torch.tools import train as train_cli
+    assert inspect.signature(Trainer).parameters["device"].default == "cuda"
+    assert train_cli.get_args_parser().parse_args([]).device == "cuda"
+    assert train_cli.get_args_parser().parse_args(["--device", "cpu"]).device == "cpu"

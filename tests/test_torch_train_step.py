@@ -27,12 +27,13 @@ from mafyolo_tpu.core.train_state import make_train_step as jax_make_train_step
 from mafyolo_tpu.models import build_model as jax_build_model
 from mafyolo_tpu.solver.build import build_lr_fn as jax_build_lr_fn
 from mafyolo_tpu.solver.build import warmup_schedule as jax_warmup_schedule
-from mafyolo_tpu_torch.core.engine import Trainer, load_config
+from mafyolo_tpu_torch.core.engine import Schedule
 from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
 from mafyolo_tpu_torch.models import build_model
 from mafyolo_tpu_torch.utils.bridge import (random_train_variables,
                                             state_dict_to_train_variables,
                                             train_variables_to_state_dict)
+from mafyolo_tpu_torch.utils.config import Config
 from torch_common import to_jax, tree_leaves
 
 NC, IMG, WD = 4, 128, 5e-4
@@ -135,14 +136,13 @@ def test_accumulate_only_step_moves_only_bn_stats():
 
 
 def test_engine_schedule_matches_jax_loop():
-    """Trainer.plan's (do_apply, accumulate, lrs) sequence equals the JAX
-    loop's (engine.py:305-312) over steps that cross the end of warm-up, for
-    accumulate 2 (bs 32) and 8 (bs 8)."""
-    cfg = load_config("configs/maf_yolo_n.py")
-    solver = cfg["solver"]
+    """The Trainer's Schedule.plan: its (do_apply, accumulate, lrs) sequence
+    equals the JAX loop's (engine.py:305-312) over steps that cross the end
+    of warm-up, for accumulate 2 (bs 32) and 8 (bs 8)."""
+    cfg = Config.fromfile("configs/maf_yolo_n.py")
+    solver = cfg.solver
     for bs, max_stepnum in ((32, 300), (8, 400)):
-        tr = Trainer(build_model(TINY_GRAPH, nc=NC), cfg, nc=NC, img_size=IMG,
-                     batch_size=bs, epochs=300, max_stepnum=max_stepnum)
+        tr = Schedule(solver, batch_size=bs, epochs=300, max_stepnum=max_stepnum)
         accumulate = max(1, round(64 / bs))
         lr0 = solver["lr0"] * bs / 32
         lf = jax_build_lr_fn(solver["lr_scheduler"], solver["lrf"], 300)

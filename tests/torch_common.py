@@ -57,3 +57,22 @@ def tree_leaves(tree, prefix=()):
 
 def u8_images(seed: int, shape):
     return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+
+
+def prior_head_weights(graph, nc: int, seed: int = 5):
+    """utils/bridge.py:random_train_variables (every leaf nonzero; the JAX
+    init zeroes the preds, which zeroes every gradient upstream of the
+    heads) with the cls preds as an init leaves them, scores at the prior
+    0.01 (bias -log(99)), but for kernels of 0.01 x the random ones."""
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.utils.bridge import random_train_variables
+    variables = random_train_variables(build_model(graph, nc=nc).specs, seed=seed)
+
+    def walk(tree, parent=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, k)
+            elif parent == "cls_pred":
+                tree[k] = 0.01 * v if k == "kernel" else np.full_like(v, -np.log(99.0))
+    walk(variables["params"])
+    return variables

@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero without a result line:
   1. device     a CUDA card is present; print its name and power limit;
   2. build      nvcc-build the hand-written kernels from mafyolo_tpu_torch/csrc;
                 cuobjdump -sass of the front-end, neck and stem libraries must
-                hold tensor-core instructions (HMMA or HGMMA);
+                hold tensor-core instructions (HMMA or HGMMA), the int8 conv
+                library IMMA ones;
   3. frontend   the fused front-end kernel against its plain version
                 (N bs4@640, S and M bs2@640, a 256x64 N batch, and 200x168
                 batches of N, S and M, whose H/4 = 50 and W/4 = 42 no tile
@@ -109,10 +110,20 @@ Phases, in order; any failure exits non-zero without a result line:
                 and strips (trainer_phase's docstring lists the gates).
                 Then the trainer's img/s, device_augment's and the step's
                 ms, the device's idle share over a profiled epoch.
+ 21. quant      MAF-YOLO-N served in real int8 (quant_phase's docstring
+                lists the gates): PTQ calibration at bs32@640 (max, card vs
+                CPU, percentile), the int8 conv kernels against their plain
+                versions bit for bit at every distinct site and odd shapes,
+                int8_predict_fn with the launch counts read around it (66
+                int8_conv, 16 int8_dw, NMS, no front-end), int8 against
+                fake-quant and the CPU, two QAT steps, tools/quantize.run
+                --eval on images held in memory, then the img/s of int8-real,
+                int8-sim and bf16 and each int8 kernel by class of site.
 Each entry of the "kernels" line carries bound_ms, the least time the card
 could take: the larger of the bytes moved (inputs read once, outputs written
 once) over 3.35 TB/s and the operations over the peak rate of the operand
-type (989 TFLOP/s for bf16 and uint8 operands, 67 TFLOP/s for f32), and
+type (989 TFLOP/s for bf16 and uint8 operands, 67 TFLOP/s for f32, 1979
+TOP/s for the int8 convs), and
 library_ms where PyTorch's own layers or one aten call compute the same.
 Weights are random (seeded); the deploy cls_pred layers are rescaled so that
 an image has about 150 (anchor, class) pairs above conf 0.03; the train run
@@ -176,7 +187,7 @@ def emit(**kw):
 
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # H100 SXM data sheet, dense
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}   # H100 SXM data sheet, dense
 SM_CLOCK_HZ, SMEM_ROUND_TRIP_CLOCKS = 1.755e9, 33   # boost clock; a dependent shared load
 
 
@@ -225,19 +236,20 @@ def model_layers0_2(model, dtype):
 
 def tensor_core_check(paths):
     """cuobjdump -sass of the built front-end, neck and stem libraries must
-    hold HMMA or HGMMA instructions; a missing cuobjdump fails."""
+    hold HMMA or HGMMA instructions, and the int8 conv library IMMA ones; a
+    missing cuobjdump fails."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.path.exists(tool), "cuobjdump not found: cannot show the tensor-core instructions")
-    for name in ("frontend", "neck80", "stem"):
+    for name in ("frontend", "neck80", "stem", "int8_conv"):
         proc = subprocess.run([tool, "-sass", str(paths[name])], capture_output=True,
                               text=True, timeout=300)
         check(proc.returncode == 0, f"cuobjdump failed on {name}: {proc.stderr[-300:]}")
-        hmma = sum(" HMMA." in ln for ln in proc.stdout.splitlines())
-        hgmma = sum(" HGMMA." in ln for ln in proc.stdout.splitlines())
+        count = {op: sum(f" {op}." in ln for ln in proc.stdout.splitlines())
+                 for op in ("HMMA", "HGMMA", "IMMA")}
         emit(phase="tensor_cores", kernel=name, lib=os.path.relpath(paths[name], HERE),
-             hmma_instructions=hmma, hgmma_instructions=hgmma)
-        check(hmma + hgmma > 0, f"{name}: no HMMA or HGMMA instruction in its SASS")
+             **{f"{op.lower()}_instructions": v for op, v in count.items()})
+        check(sum(count.values()) > 0, f"{name}: no HMMA, HGMMA or IMMA instruction in its SASS")
 
 
 def train_batch(seed, b, img, device, max_boxes=120):
@@ -628,7 +640,8 @@ def main():
 
     # ---- 2. build: one nvcc per source, all started together
     from concurrent.futures import ThreadPoolExecutor
-    names = ("frontend", "greedy_nms", "dw_grad", "stem", "neck80", "fma_probe")
+    names = ("frontend", "greedy_nms", "dw_grad", "stem", "neck80", "fma_probe", "int8_conv",
+             "int8_dw")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -867,6 +880,7 @@ def main():
     torch.set_grad_enabled(True)
     trainer_phase(dev, card)
     torch.set_grad_enabled(False)
+    quant_kernels = quant_phase(dev, folded, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -894,6 +908,7 @@ def main():
          "bound_ms": stem_s["bound_ms"], "bound_by": stem_s["bound_by"],
          "library_ms": stem_s["library_ms"]},
         *s_res["kernels"],
+        *quant_kernels,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -1923,6 +1938,339 @@ def train_phases(dev):
     return {"launches": launches, "dk_ms": dk_ms, "dk_plain_ms": dk_plain_ms,
             "dk_err": b32_err, "dk_library_ms": dk_library_ms,
             "dk_bound": bound(dk_bytes, dk_flops, "bf16")}
+
+
+# The least share of detections (score > 0.1, match()'s criterion) that the
+# int8 predict matches: of the int8-sim (f32 fake-quant) predict of the same
+# bs32 batch, and of the CPU's int8 predict (f32 activations) of the same 2
+# images. 0.6 x the first card run's shares, 72 / 766 and 51 / 57 (PERF.md
+# §6, the int8 entry; NVIDIA H100 80GB HBM3, 700.00 W). The int8 graph is
+# discontinuous: an activation moved by one rounding (bf16 against f32, or
+# the card's SiLU against the CPU's in the last bit) that sits at a half of
+# a quantization step flips it, and the flip spreads through the layers
+# after it; random heads then move scores past match()'s 0.01.
+INT8_SHARE_FLOOR = {"int8_sim": 0.056, "cpu": 0.537}
+QUANT_BATCHES = 4           # bs32@640 batches of the int8 predict
+
+
+def _int8_site_bound(p, x, out):
+    """(bytes, int8 operations) of one int8 conv launch: its input read
+    once, its output written once, the int8 weights and the f32 scale and
+    bias; 2 operations per multiply-add."""
+    b, c, h, w = x.shape
+    ho, wo = out.shape[2:]
+    macs = b * ho * wo * p.cout * (c // p.groups) * p.k * p.k
+    nbytes = (x.numel() + out.numel()) * x.element_size() + p.w_q.numel() + 8 * p.cout
+    return nbytes, 2 * macs
+
+
+def _site_class(p):
+    return f"dw{p.k}" if p.kind == "dw" else f"{p.k}x{p.k}s{p.stride}"
+
+
+def _int8_inputs(model, x):
+    """{module name: (pack, input)} of every QuantConv2d of an int8 model
+    in one forward of x."""
+    from mafyolo_tpu_torch.models.blocks import QuantConv2d
+    seen, hooks = {}, []
+
+    def keep(name):
+        def hook(mod, args):
+            seen.setdefault(name, (mod.int8, args[0]))
+        return hook
+    for name, m in model.named_modules():
+        if isinstance(m, QuantConv2d):
+            hooks.append(m.register_forward_pre_hook(keep(name)))
+    model(x)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def _odd_int8_sites(dev):
+    """(tag, pack, input) of int8 convs at shapes the model does not give:
+    Cin 3 at 2x126x94, a 3x3 stride-2 conv at odd H and W, C of 1, 33 and
+    72, every DW kernel size on 37x23; nonzero biases (U(0.2, 1)); bf16
+    and f32 inputs."""
+    import torch
+
+    from mafyolo_tpu_torch.ops import quant_conv as QC
+    gen = torch.Generator().manual_seed(12)
+    out = []
+    for shape, o, k, stride, groups in (((2, 3, 126, 94), 16, 3, 2, 1),
+                                        ((2, 33, 63, 47), 72, 3, 2, 1),
+                                        ((2, 1, 40, 40), 33, 1, 1, 1),
+                                        ((2, 72, 37, 23), 1, 1, 1, 1),
+                                        ((2, 33, 37, 23), 33, 3, 1, 33),
+                                        ((2, 72, 37, 23), 72, 5, 1, 72),
+                                        ((2, 1, 37, 23), 1, 7, 1, 1),
+                                        ((2, 72, 37, 23), 72, 9, 1, 72)):
+        w = torch.randn((o, shape[1] // groups, k, k), generator=gen)
+        bias = torch.rand((o,), generator=gen) * 0.8 + 0.2
+        pad = k // 2 if stride == 1 else (k - 1) // 2
+        p = QC.pack(w, bias, torch.tensor(2.5), stride, pad, groups).to(dev)
+        x = torch.randn(shape, generator=gen) * 1.2 + 0.3
+        for dt in (torch.bfloat16, torch.float32):
+            out.append((f"{shape}->{o} k{k}s{stride}g{groups} {dt}", p,
+                        x.to(dev, dt).contiguous(memory_format=torch.channels_last)))
+    return out
+
+
+def quant_phase(dev, folded, card):
+    """Phase 21: MAF-YOLO-N served in real int8 (core/quant.py) on the card.
+
+    quant_calib: PTQ max calibration over QUANT_BATCHES bs32@640 batches
+    (all 88 amax > 0); 2 images calibrated on the card and on the CPU
+    (plain versions) agree at rtol 1e-5; percentile calibration once (every
+    amax in (0, its max]). int8_conv_check: the int8 kernels against their
+    plain versions on the real bf16 input of every distinct int8 conv site
+    of N (bs2@640) and at _odd_int8_sites, bit for bit, a second launch
+    bit-identical. quant_int8: int8_predict_fn (bf16) over QUANT_BATCHES
+    bs32@640 batches with every launch count read around that run: 66
+    int8_conv and 16 int8_dw launches a predict, 1 NMS launch a batch (8 on
+    overflow), no front-end launch; int8 against quantized_predict_fn
+    (fake-quant, f32) on a batch: mean |cls| of the decodes < 0.02 and the
+    share of int8-sim detections (score > 0.1) matched at least
+    INT8_SHARE_FLOOR["int8_sim"]; card int8 in f32 against the CPU's on 2
+    images, at least INT8_SHARE_FLOOR["cpu"] matched. quant_qat: two QAT
+    steps at bs8@320 (finite losses, parameters moved), the first loss of 2
+    images on the card against the CPU's at rtol 1e-3, both in f64.
+    quant_cli: tools/quantize.run --eval on the eval
+    phase's images held in memory (fp, int8-sim, int8-real AP).
+    timing_quant: img/s of int8-real, int8-sim and the bf16 float predict
+    on the same batches; per class of site the int8 kernel's ms a predict,
+    its plain version's, its launches, its bound, and the yardsticks:
+    torch._int_mm on the 1x1 sites' quantized operands, cuDNN's bf16 conv
+    of the other sites (no int8 conv exists in PyTorch on the card)."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mafyolo_tpu_torch.core import quant as Q
+    from mafyolo_tpu_torch.models.detect import decode_eval
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.ops import quant_conv as QC
+    from mafyolo_tpu_torch.tools import quantize as QT
+    from mafyolo_tpu_torch.utils.sample import ArrayDataset, eval_set, evaler, images
+    from mafyolo_tpu_torch.utils.timing import cuda_ms
+    name, bf16 = "maf-yolo-n", torch.bfloat16
+
+    # ---- quant_calib
+    calib = [images(300 + i, BATCH).to(dev) for i in range(QUANT_BATCHES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quant = Q.ptq_calibrate(name, NC, folded, calib, max_batches=QUANT_BATCHES, device=dev)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    amax = {"/".join(k): float(v) for k, v in _tree_items(quant)}
+    check(len(amax) == 88 and min(amax.values()) > 0, f"calibration: {len(amax)} leaves, "
+          f"min {min(amax.values())}")
+    two = images(7, 2)
+    q_card = {"/".join(k): float(v) for k, v in _tree_items(
+        Q.ptq_calibrate(name, NC, folded, [two.to(dev)], max_batches=1, device=dev))}
+    q_cpu = {"/".join(k): float(v) for k, v in _tree_items(
+        Q.ptq_calibrate(name, NC, folded, [two], max_batches=1, device="cpu"))}
+    calib_rel = max(abs(q_card[k] - q_cpu[k]) / q_cpu[k] for k in q_cpu)
+    t0 = time.perf_counter()
+    pct = {"/".join(k): float(v) for k, v in _tree_items(Q.ptq_calibrate(
+        name, NC, folded, calib, max_batches=QUANT_BATCHES, method="percentile", device=dev))}
+    pct_s = time.perf_counter() - t0
+    emit(phase="quant_calib", batches=QUANT_BATCHES, batch=BATCH, img=IMG, leaves=len(amax),
+         seconds=calib_s, percentile_seconds=pct_s, card_vs_cpu_max_rel=calib_rel,
+         percentile_clipped=sum(pct[k] < amax[k] for k in amax),
+         amax_min=min(amax.values()), amax_max=max(amax.values()))
+    check(q_card.keys() == q_cpu.keys() and calib_rel <= 1e-5,
+          f"calibration card vs CPU: max rel {calib_rel}")
+    check(pct.keys() == amax.keys() and all(0 < pct[k] <= amax[k] for k in amax),
+          "percentile calibration: an amax outside (0, max]")
+
+    # ---- int8_conv_check: every distinct site of N at bs2@640, then odd shapes
+    p8 = Q.int8_predict_fn(name, NC, folded, quant, device=dev)
+    seen = _int8_inputs(p8.model, Q.normalize(images(9, 2), bf16, dev))
+    kinds = [p.kind for p, _ in seen.values()]
+    check(len(seen) == 82 and kinds.count("dense") == 66 and kinds.count("dw") == 16,
+          f"int8 sites: {len(seen)} ({kinds.count('dense')} dense, {kinds.count('dw')} dw)")
+    distinct = {}
+    for mname, (p, x) in seen.items():
+        distinct.setdefault((p.kind, p.cin, p.cout, p.k, p.stride, tuple(x.shape[2:])),
+                            (mname, p, x))
+    cases = [(mname, p, x) for mname, p, x in distinct.values()] + _odd_int8_sites(dev)
+    conv_err = {"dense": 0.0, "dw": 0.0}
+    records = []
+    for tag, p, x in cases:
+        got, again, want = QC.int8_conv(x, p), QC.int8_conv(x, p), QC.int8_conv_plain(x, p)
+        err = (got.float() - want.float()).abs().max().item()
+        conv_err[p.kind] = max(conv_err[p.kind], err)
+        records.append([tag, p.kind, list(x.shape), p.cout, p.k, p.stride, err])
+        check(torch.equal(got, want), f"int8 {p.kind} kernel differs from plain at {tag}: {err}")
+        check(torch.equal(got, again), f"int8 {p.kind} kernel: a second launch differs at {tag}")
+    emit(phase="int8_conv_check", sites=len(distinct), odd_cases=len(cases) - len(distinct),
+         max_abs_err=conv_err, cases=records)
+
+    # ---- quant_int8: the int8 predict, launch counts read around it
+    psim = Q.quantized_predict_fn(name, NC, folded, quant, device=dev)
+    batches = [images(400 + i, BATCH).to(dev) for i in range(QUANT_BATCHES)]
+    torch.cuda.synchronize()
+    QC.int8_conv.launches = QC.int8_dw.launches = 0
+    G.greedy_nms.launches = FE.frontend_forward.launches = 0
+    outs8, nms_per = [], []
+    for bt in batches:
+        before = G.greedy_nms.launches
+        outs8.append(p8(bt))
+        nms_per.append(G.greedy_nms.launches - before)
+    torch.cuda.synchronize()
+    launches = {"int8_conv": QC.int8_conv.launches, "int8_dw": QC.int8_dw.launches,
+                "greedy_nms": G.greedy_nms.launches, "frontend": FE.frontend_forward.launches}
+    n = len(batches)
+    check(launches["int8_conv"] == 66 * n and launches["int8_dw"] == 16 * n,
+          f"int8 launches {launches} over {n} predicts")
+    check(launches["frontend"] == 0, f"the int8 predict launched the front-end kernel: {launches}")
+    check(all(k in (1, 8) for k in nms_per), f"NMS launches a batch: {nms_per}")
+    check_dets(outs8, BATCH, "int8 predict")
+    x8, x32 = Q.normalize(batches[0], bf16, dev), Q.normalize(batches[0], torch.float32, dev)
+    cls8 = decode_eval(p8.model(x8), (8, 16, 32))[..., 5:].float()
+    cls_sim = decode_eval(psim.model(x32), (8, 16, 32))[..., 5:].float()
+    dcls = (cls8 - cls_sim).abs()
+    n_sim, m_sim = match(on_cpu(psim(batches[0])), on_cpu(outs8[0]), 0.1)
+    p8_32 = Q.int8_predict_fn(name, NC, folded, quant, dtype=torch.float32, device=dev)
+    p8_cpu = Q.int8_predict_fn(name, NC, folded, quant, dtype=torch.float32, device="cpu")
+    n_cpu, m_cpu = match(p8_cpu(two), on_cpu(p8_32(two.to(dev))), 0.1)
+    emit(phase="quant_int8", batches=n, launches=launches, nms_launches_per_batch=nms_per,
+         int8_conv_per_predict=launches["int8_conv"] / n,
+         int8_dw_per_predict=launches["int8_dw"] / n,
+         dets_per_image_mean=float(torch.cat([o["valid"].sum(1) for o in outs8]).float()
+                                   .mean().item()),
+         cls_diff_mean=dcls.mean().item(), cls_diff_max=dcls.max().item(),
+         sim_dets_above_0p1=n_sim, int8_matched=m_sim, int8_share=m_sim / max(n_sim, 1),
+         cpu_dets_above_0p1=n_cpu, cpu_matched=m_cpu, cpu_share=m_cpu / max(n_cpu, 1),
+         share_floors=INT8_SHARE_FLOOR)
+    check(dcls.mean().item() < 0.02, f"int8 vs int8-sim: mean |cls| {dcls.mean().item()}")
+    check(n_sim > 0 and m_sim / n_sim >= INT8_SHARE_FLOOR["int8_sim"],
+          f"int8 vs int8-sim: {m_sim}/{n_sim} detections matched")
+    check(n_cpu >= 10 and m_cpu / n_cpu >= INT8_SHARE_FLOOR["cpu"],
+          f"int8 card vs CPU: {m_cpu}/{n_cpu} detections matched")
+    del p8_32, p8_cpu
+
+    # ---- quant_qat: two steps at bs8@320; the first loss against the CPU's
+    class Batches:
+        def __init__(self, items):
+            self.items = items
+
+        def set_epoch(self, epoch):
+            pass
+
+        def __iter__(self):
+            return iter(self.items)
+
+    torch.set_grad_enabled(True)
+    steps = [train_batch(500 + i, 8, 320, dev) + (None,) for i in range(2)]
+    losses = []
+    qat = Q.qat_finetune(name, NC, folded, quant, Batches(steps), img_size=320, epochs=1,
+                         device=dev, losses=losses)
+    before = dict(_tree_items(folded["params"]))
+    moved = sum(not np.array_equal(np.asarray(v), np.asarray(before[k]))
+                for k, v in _tree_items(qat["params"]))
+    # the first loss of 2 images, card against CPU, in f64: in f32 a conv sum
+    # that differs in its last bit flips a rounding of the fake-quant graph
+    # (the CPU alone moves this loss by 3.8% between 1 and 8 threads)
+    first = [(steps[0][0][:2], steps[0][1][:2], None)]
+    l_card, l_cpu = [], []
+    Q.qat_finetune(name, NC, folded, quant, Batches(first), img_size=320, epochs=1,
+                   device=dev, dtype=torch.float64, losses=l_card)
+    Q.qat_finetune(name, NC, folded, quant,
+                   Batches([(first[0][0].cpu(), first[0][1].cpu(), None)]), img_size=320,
+                   epochs=1, device="cpu", dtype=torch.float64, losses=l_cpu)
+    torch.set_grad_enabled(False)
+    emit(phase="quant_qat", batch=8, img=320, losses=losses, leaves_moved=moved,
+         leaves=len(list(_tree_items(folded["params"]))), first_loss_card=l_card[0],
+         first_loss_cpu=l_cpu[0])
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"QAT losses {losses}")
+    check(moved > 0, "QAT moved no parameter")
+    check(abs(l_card[0] - l_cpu[0]) <= 1e-3 * abs(l_cpu[0]),
+          f"QAT first loss card {l_card[0]} vs CPU {l_cpu[0]}")
+
+    # ---- quant_cli: tools/quantize.run --eval on images held in memory
+    sizes = [hw for hw, k in EVAL_SIZES.items() for _ in range(k)]
+    sizes = [sizes[i] for i in np.random.default_rng(20).permutation(len(sizes))]
+    src = eval_set(20, sizes)
+    data = {"train": src, "val": src, "nc": NC, "names": [str(c) for c in range(NC)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "n.npck")
+        with open(weights, "wb") as f:
+            pickle.dump({"model": folded, "folded": True, "ema": None,
+                         "meta": {"graph": name, "nc": NC}}, f, protocol=4)
+        t0 = time.perf_counter()
+        res = QT.run(QT.get_args_parser().parse_args(
+            ["--weights", weights, "--data", "in-memory", "--img-size", str(IMG),
+             "--batch-size", str(BATCH), "--calib-batches", "2", "--workers", "8", "--eval",
+             "--device", str(dev)]),
+            data_dict=data, dataset_cls=ArrayDataset)
+        cli_s = time.perf_counter() - t0
+        saved = os.path.exists(weights.replace(".npck", "_calib.npck"))
+    emit(phase="quant_cli", images=len(sizes), seconds=cli_s, calibrated_ckpt=saved,
+         ap={k: v.get("AP") for k, v in res.items()},
+         ap50={k: v.get("AP50") for k, v in res.items()})
+    check(list(res) == ["fp", "int8-sim", "int8-real"] and saved
+          and all(np.isfinite(v["AP"]) for v in res.values()), f"quantize CLI: {res}")
+
+    # ---- timing_quant: img/s, then each site at bs32@640 (inputs of one forward)
+    ev = evaler(name, folded, True, dev)
+    rate = {}
+    for tag, fn in (("int8_real", p8), ("int8_sim", psim), ("bf16", ev.predict)):
+        img_s, mean_ms, p50, p90 = route_timing(fn, batches)
+        rate[tag] = {"img_per_s": img_s, "batch_ms_mean": mean_ms, "p50_batch_ms": p50,
+                     "p90_batch_ms": p90}
+    del ev
+    seen = _int8_inputs(p8.model, x8)
+    classes, total = {}, {"dense": {}, "dw": {}}
+    for mname, (p, x) in seen.items():
+        out = QC.int8_conv(x, p)
+        nbytes, ops = _int8_site_bound(p, x, out)
+        row = classes.setdefault(_site_class(p), {})
+        ms = cuda_ms(lambda: QC.int8_conv(x, p), 5)
+        plain_ms = cuda_ms(lambda: QC.int8_conv_plain(x, p), 2, warmup=1)
+        site_bound = bound(nbytes, ops, "int8")
+        if p.kind == "dense" and p.k == 1:
+            # the library's int8 GEMM on the same quantized operands (K and
+            # O padded with zeros to multiples of 8, as _int_mm asks)
+            a = QC.quantize(x, p.x_scale_t).to(torch.int8).permute(0, 2, 3, 1) \
+                .reshape(-1, p.cin)
+            kp, op = -(-p.cin // 8) * 8, -(-p.cout // 8) * 8
+            a = torch.nn.functional.pad(a, (0, kp - p.cin)).contiguous()
+            bmat = torch.nn.functional.pad(p.w_q[:, :, 0, 0].t(),
+                                           (0, op - p.cout, 0, kp - p.cin)).contiguous()
+            yard = ("library_ms", cuda_ms(lambda: torch._int_mm(a, bmat), 5))
+        else:
+            # no int8 conv in PyTorch on the card: cuDNN's bf16 conv of the same shape
+            wb, bb = p.w_q.to(bf16), p.bias.to(bf16)
+            xb = x.to(bf16)
+            yard = ("cudnn_bf16_ms", cuda_ms(lambda: torch.nn.functional.conv2d(
+                xb, wb, bb, p.stride, p.pad, 1, p.groups), 5))
+        for r in (row, total[p.kind]):
+            for key, v in (("launches_per_predict", 1), ("ms", ms), ("plain_ms", plain_ms),
+                           ("bytes", nbytes), ("ops", ops),
+                           ("bound_ms", site_bound["bound_ms"]), yard):
+                r[key] = r.get(key, 0) + v
+    for r in list(classes.values()) + list(total.values()):
+        t_b, t_f = r["bytes"] / HBM_BYTES_PER_S * 1e3, r["ops"] / PEAK_FLOPS["int8"] * 1e3
+        r["bound_by"] = "bytes" if t_b >= t_f else "operations"
+        r["bound_over_kernel"] = r["bound_ms"] / r["ms"]
+    emit(phase="timing_quant", model=name, batch=BATCH, img=IMG, card=card, predict=rate,
+         classes=classes, per_kernel=total,
+         note="ms: CUDA events around eager launches on one forward's inputs, summed over "
+              "the sites of a class; library_ms: torch._int_mm on the 1x1 sites' quantized "
+              "operands; cudnn_bf16_ms: no int8 conv exists in PyTorch on the card, so "
+              "cuDNN's bf16 conv of the same shape, a yardstick of another function")
+    return [
+        {"name": kname, "route": "cuda", "source": f"mafyolo_tpu_torch/csrc/{kname}.cu",
+         "replaces": "mafyolo_tpu/models/blocks.py:306-321", "launches": launches[kname],
+         "max_abs_err": conv_err[kind], "ms": total[kind]["ms"],
+         "plain_ms": total[kind]["plain_ms"], "bound_ms": total[kind]["bound_ms"],
+         "bound_by": total[kind]["bound_by"], "library_ms": None}
+        for kname, kind in (("int8_conv", "dense"), ("int8_dw", "dw"))]
 
 
 if __name__ == "__main__":

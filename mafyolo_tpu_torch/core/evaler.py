@@ -87,6 +87,10 @@ class Evaler:
         self.is_coco = bool(self.data.get("is_coco", False))
         self.ids = coco80_to_coco91_class() if self.is_coco else list(range(10000))
         self.speed_result = np.zeros(4)
+        # a predict function of uint8 images that predict_model calls in
+        # place of self.predict (the quantize CLI's int8 predicts), as the
+        # JAX Evaler's _predict
+        self._predict = None
 
     # ---------- model ----------
 
@@ -202,7 +206,7 @@ class Evaler:
             imgs_dev = torch.from_numpy(imgs).to(self.device)
             self._sync()
             t1 = time.perf_counter()
-            out = self.predict(imgs_dev)
+            out = (self._predict or self.predict)(imgs_dev)
             self._sync()
             t2 = time.perf_counter()
             boxes = out["boxes"].to("cpu", torch.float64).numpy()

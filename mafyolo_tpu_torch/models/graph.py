@@ -130,14 +130,21 @@ class GraphNet(nn.Module):
     i.e. skip_until is at least 0 (graph.py:246 of the JAX package).
     The skipped layers keep their parameters, so one state_dict serves both,
     and `forward(x, skip_until=...)` overrides the default for one call.
+    quant (deploy only) builds the blocks' quantizers (models/blocks.py),
+    in calib mode with calibrate, and the neck upsamples as Upsample2x
+    modules with an output quantizer (graph.py:272-273 of the JAX package).
     """
 
     def __init__(self, specs, save, out_frm, deploy: bool = False,
-                 skip_until: int = -1, skip_stem: bool = False):
+                 skip_until: int = -1, skip_stem: bool = False,
+                 quant: bool = False, calibrate: bool = False):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
         self.skip_until = max(skip_until, 0 if skip_stem else -1)
+        q = dict(quant=quant, calibrate=calibrate) if quant and deploy else {}
         for spec in specs:
+            if spec.kind == "Upsample" and q:
+                self.add_module(f"layer{spec.idx}", B.Upsample2x(calibrate))
             ctor = _BLOCK_CTORS.get(spec.kind)
             if ctor is None:
                 continue
@@ -145,7 +152,7 @@ class GraphNet(nn.Module):
             if "cin" not in kw:   # ConvWrapper rows infer cin from their source
                 src = spec.frm[0]
                 kw["cin"] = specs[src if src >= 0 else spec.idx + src].cout
-            self.add_module(f"layer{spec.idx}", ctor(deploy=deploy, **kw))
+            self.add_module(f"layer{spec.idx}", ctor(deploy=deploy, **kw, **q))
 
     def forward(self, x, skip_until: Optional[int] = None):
         if skip_until is None:
@@ -163,7 +170,8 @@ class GraphNet(nn.Module):
             inp = [x if j == -1 else y[j if j >= 0 else spec.idx + j]
                    for j in spec.frm]
             if spec.kind == "Upsample":
-                x = B.upsample2x(inp[0])
+                up = getattr(self, f"layer{spec.idx}", None)
+                x = up(inp[0]) if up is not None else B.upsample2x(inp[0])
             elif spec.kind == "Concat":
                 x = torch.cat(inp, 1)
             else:
@@ -178,12 +186,14 @@ class MAFYolo(nn.Module):
 
     def __init__(self, specs, save, out_frm, nc: int = 80, reg_max: int = 16,
                  strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
-                 skip_until: int = -1, skip_stem: bool = False):
+                 skip_until: int = -1, skip_stem: bool = False,
+                 quant: bool = False, calibrate: bool = False):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
         self.nc, self.reg_max, self.strides = nc, reg_max, strides
         self.net = GraphNet(specs, save, out_frm, deploy=deploy,
-                            skip_until=skip_until, skip_stem=skip_stem)
+                            skip_until=skip_until, skip_stem=skip_stem,
+                            quant=quant, calibrate=calibrate)
 
     def forward(self, x, skip_until: Optional[int] = None):
         return self.net(x, skip_until)
@@ -191,12 +201,19 @@ class MAFYolo(nn.Module):
 
 def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: int = 16,
                 strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
-                skip_until: int = -1, skip_stem: bool = False) -> MAFYolo:
+                skip_until: int = -1, skip_stem: bool = False,
+                quant: bool = False, calibrate: bool = False) -> MAFYolo:
     """Build a MAFYolo (train form, or deploy form with deploy=True) from a
-    zoo name or a graph dict."""
+    zoo name or a graph dict. quant=True (deploy only) adds the INT8
+    quantizers, in fake-quant mode or, with calibrate, in calib mode (the
+    JAX build_model's quant/calibrate); models/blocks.set_quant_mode
+    switches them later. A quant graph runs all its layers: the front-end
+    and stem kernels are for the float graph."""
     if isinstance(graph, str):
         graph = MODEL_ZOO[graph.lower()]
+    if quant and not deploy:
+        raise ValueError("quant=True needs the deploy form (deploy=True)")
     specs, save, out_frm = parse_graph(graph, nc=nc)
     return MAFYolo(specs, save, out_frm, nc=nc, reg_max=reg_max,
                    strides=strides, deploy=deploy, skip_until=skip_until,
-                   skip_stem=skip_stem)
+                   skip_stem=skip_stem, quant=quant, calibrate=calibrate)

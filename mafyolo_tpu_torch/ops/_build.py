@@ -30,7 +30,8 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # FMA probe wants contraction, which is nvcc's default. dw_grad holds 20
 # instantiations of its tile kernel: its optimization passes run in parallel.
 EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": [], "stem": [], "neck80": [],
-               "fma_probe": [], "dw_grad": ["-split-compile=0"]}
+               "fma_probe": [], "dw_grad": ["-split-compile=0"], "int8_conv": [],
+               "int8_dw": []}
 
 _LOADED: dict = {}
 BUILD_LOG: dict = {}   # name -> (seconds, nvcc output) of builds run here

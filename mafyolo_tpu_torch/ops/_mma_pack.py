@@ -66,3 +66,27 @@ def unpack_b(flat: torch.Tensor, k: int, n: int, interleave: bool = False) -> to
         out[:, _interleave_perm(n).to(w.device)] = w
         return out
     return w
+
+
+def pad32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def pack_b_s8(w: torch.Tensor) -> torch.Tensor:
+    """int8 [K, N] -> flat int8 [pad32(K) * pad16(N)] in the fragment order of
+    `mma.m16n8k32.s8` (csrc/mma_s8.cuh): as pack_b, with a 32-row K tile of
+    bytes, a lane's b0 = B[4t .. 4t+3, g] and b1 = B[16+4t .. 16+4t+3, g]."""
+    k, n = w.shape
+    kp, np_ = pad32(k), pad16(n)
+    w = F.pad(w.to(torch.int8), (0, np_ - n, 0, kp - k))
+    # k = 32*kt + 16*half + 4*t + j ; n = 16*pair + 8*tile + g
+    w = w.view(kp // 32, 2, 4, 4, np_ // 16, 2, 8)
+    #   dims: kt, half, t, j, pair, tile, g -> kt, pair, g, t, tile, half, j
+    return w.permute(0, 4, 6, 2, 5, 1, 3).reshape(-1).contiguous()
+
+
+def unpack_b_s8(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of pack_b_s8: the padded int8 matrix [pad32(k), pad16(n)]."""
+    kp, np_ = pad32(k), pad16(n)
+    w = flat.view(kp // 32, np_ // 16, 8, 4, 2, 2, 4)
+    return w.permute(0, 5, 3, 6, 1, 4, 2).reshape(kp, np_)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from mafyolo_tpu_torch.models.detect import dfl_decode, flatten_train_outputs
-from mafyolo_tpu_torch.ops.boxes import box_iou_pairwise
+from mafyolo_tpu_torch.ops.boxes import box_iou_pairwise, xywh2xyxy
 from mafyolo_tpu_torch.ops.compaction import compact_mask_indices
 from mafyolo_tpu_torch.ops.greedy_nms import greedy_nms
 
@@ -193,4 +193,34 @@ def _dense(cls_scores, reg_distri, conf_thres, iou_thres, max_det, ma, m,
     b, s, c, v = _blocked_greedy_select(
         cand, offset(cand, cls_idx), top_scores.float(), cls_idx, iou_thres,
         max_det)
+    return dict(boxes=b, scores=s, classes=c, valid=v)
+
+
+def batched_nms(prediction, conf_thres: float = 0.03, iou_thres: float = 0.65,
+                max_det: int = 300, pre_nms_topk: int = 2000,
+                multi_label: bool = True, agnostic: bool = False):
+    """prediction [B, A, 5+nc] (xywh, obj, cls scores, as models/detect.py:
+    decode_eval gives it) -> the dict of fused_decode_nms
+    (mafyolo_tpu/ops/nms.py:289-330).
+
+    Exact two-stage top-M over the [A, nc] score matrix: the top-M anchors
+    by their best score, then the top-M pairs inside those rows (every pair
+    outside them scores no more than a kept anchor's best), then blocked
+    greedy NMS over the M candidates (block 256: the greedy-NMS kernel once
+    a block on the card)."""
+    nc = prediction.shape[-1] - 5
+    a = prediction.shape[1]
+    m = min(pre_nms_topk, a * nc)
+    boxes = xywh2xyxy(prediction[..., :4])
+    cls_scores = prediction[..., 5:] * prediction[..., 4:5]
+    cls_scores = _competing(cls_scores, conf_thres, multi_label)
+    _, anchor_top = _topk_stable(cls_scores.amax(-1), min(m, a))        # [B, Ma]
+    rows = _take(cls_scores, anchor_top)                                 # [B, Ma, nc]
+    top_scores, top_flat = _topk_stable(rows.reshape(rows.shape[0], -1), m)
+    anchor_idx = anchor_top.gather(1, torch.div(top_flat, nc, rounding_mode="floor"))
+    cls_idx = top_flat % nc
+    cand = _take(boxes, anchor_idx)
+    off = cand if agnostic else cand + cls_idx[..., None].to(cand.dtype) * MAX_WH
+    b, s, c, v = _blocked_greedy_select(cand, off, top_scores.float(), cls_idx,
+                                        iou_thres, max_det)
     return dict(boxes=b, scores=s, classes=c, valid=v)

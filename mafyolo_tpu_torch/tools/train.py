@@ -8,8 +8,10 @@ Trains on the card (`--device cpu` trains on the CPU with the kernels'
 plain versions) and writes runs/train/exp*/: args.yaml, last_ckpt.npck,
 best_ckpt.npck and, in the stop-aug tail, best_stop_aug_ckpt.npck, in the
 JAX package's checkpoint layout. Reading the dataset yaml needs PyYAML,
-and decoding image files needs OpenCV. --quant/--calib, --simota,
---distill and --device-count are not ported yet and raise.
+and decoding image files needs OpenCV. --quant --calib --pretrained ckpt
+runs INT8 PTQ calibration and its eval through tools/quantize.py, as the
+JAX CLI does; --quant or --calib alone (QAT through the Trainer),
+--simota, --distill and --device-count are not ported and raise.
 """
 import argparse
 import os
@@ -56,9 +58,10 @@ def get_args_parser():
     p.add_argument("--device-aug", action="store_true",
                    help="affine/HSV/flip/mosaic/mixup on the device; the host "
                         "loader only letterboxes")
-    p.add_argument("--quant", action="store_true", help="INT8 flow (not ported)")
+    p.add_argument("--quant", action="store_true",
+                   help="INT8 flow: with --calib, PTQ of --pretrained")
     p.add_argument("--calib", action="store_true",
-                   help="PTQ calibration (not ported)")
+                   help="PTQ calibration (with --quant; tools/quantize.py)")
     p.add_argument("--device-count", type=int, default=None,
                    help="data parallel over N cards (not ported)")
     p.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
@@ -78,9 +81,22 @@ def main(args):
     from mafyolo_tpu_torch.utils.config import Config
     from mafyolo_tpu_torch.utils.events import LOGGER, load_yaml, save_yaml
 
+    if args.quant and args.calib:
+        # PTQ calibrates and evaluates an existing checkpoint, so a trained
+        # model is mandatory (tools/train.py:98-110 of the JAX package)
+        if not args.pretrained:
+            raise SystemExit(
+                "--quant --calib requires --pretrained <checkpoint>: "
+                "PTQ calibration runs on a trained model (see tools/quantize.py)")
+        from mafyolo_tpu_torch.tools import quantize as Q
+        return Q.run(Q.get_args_parser().parse_args([
+            "--weights", args.pretrained, "--data", args.data_path,
+            "--img-size", str(args.img_size), "--batch-size", str(args.batch_size),
+            "--eval", "--device", args.device]))
     if args.quant or args.calib:
-        raise NotImplementedError("--quant/--calib are not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+        raise NotImplementedError("--quant or --calib alone (QAT through the Trainer) "
+                                  "is not a feature of the JAX package either: "
+                                  "use --quant --calib, or tools/quantize.py --qat")
     if args.device_count is not None:
         raise NotImplementedError("--device-count (data parallel) is not ported yet "
                                   "(ROADMAP Queue 1 item 8)")

@@ -11,7 +11,10 @@ equal that tree's keys, so every map is leaf for leaf, under the prefix
   batch_stats  .../mean -> .running_mean; .../var -> .running_var
 
 Folded deploy trees (mafyolo_tpu/models/reparam.py:fold_variables) have
-params only; train-form trees have both collections.
+params only; train-form trees have both collections. The INT8 'quant'
+collection ({'net': {...: {'act_amax': f32 scalar[, 'act_hist': [bins]]}}},
+mafyolo_tpu/core/quant.py) maps onto the quant model's buffers of the same
+names: the '/'-joined paths of one are the '.'-joined names of the other.
 """
 from __future__ import annotations
 
@@ -84,6 +87,35 @@ def state_dict_to_train_variables(sd) -> Dict:
             node = node.setdefault(k, {})
         node[key] = np.ascontiguousarray(arr)
     return out
+
+
+QUANT_LEAVES = ("act_amax", "act_hist")
+
+
+def quant_to_state_dict(quant) -> Dict[str, torch.Tensor]:
+    """JAX quant tree -> the act_amax / act_hist buffers of a quant model."""
+    return {".".join(path): torch.from_numpy(np.array(leaf, np.float32))
+            for path, leaf in _flatten(quant)}
+
+
+def state_dict_to_quant(sd) -> Dict:
+    """The act_amax / act_hist entries of a state_dict -> the JAX quant tree
+    (numpy f32; act_amax 0-d, as jax.device_get gives it)."""
+    out: Dict = {}
+    for name, t in sd.items():
+        *path, leaf = name.split(".")
+        if leaf not in QUANT_LEAVES:
+            continue
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t.detach().float().cpu().numpy().copy()
+    return out
+
+
+def quant_variables_to_state_dict(folded, quant) -> Dict[str, torch.Tensor]:
+    """Folded params + quant tree -> the state_dict of a quant deploy model."""
+    return {**folded_to_state_dict(folded), **quant_to_state_dict(quant)}
 
 
 def _random_leaf(rng, leaf: str, shape, weight_gain: float):

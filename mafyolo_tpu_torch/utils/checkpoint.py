@@ -6,8 +6,11 @@ momentum as a params tree, updates, wiou_mean, epoch, meta: {graph, nc,
 ...}, folded?}, under the flax names (utils/bridge.py maps them to the
 port's state_dict). Either package reads what the other wrote.
 `strip_checkpoint` promotes the EMA to the model, drops the optimizer state
-and casts to fp16, as the JAX one does. The `.pt` bridge for the released
-reference checkpoints is not ported yet.
+and casts to fp16, as the JAX one does. A calibrated INT8 checkpoint
+(`save_calibrated`, the layout of the JAX tools/quantize.py:101-105) is
+{model: {params} folded, quant: the amax tree, folded: True, meta, ema:
+None}. The `.pt` bridge for the released reference checkpoints is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -59,6 +62,15 @@ def load_checkpoint(path: str) -> Dict:
             "yet (ROADMAP Queue 1 item 5)")
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def save_calibrated(path: str, folded: Dict, quant: Dict, meta: Dict) -> str:
+    """Write a calibrated checkpoint: folded params, amax tree, meta."""
+    ckpt = {"model": {"params": folded["params"]}, "quant": quant,
+            "folded": True, "meta": meta, "ema": None}
+    with open(path, "wb") as f:
+        pickle.dump(ckpt, f, protocol=4)
+    return path
 
 
 def eval_variables(ckpt: Dict, prefer_ema: bool = True) -> Dict:

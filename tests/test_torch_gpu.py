@@ -372,3 +372,75 @@ def test_device_aug_train_step_and_eval_and_save(cuda_device, tmp_path):
     metrics = tr.eval_and_save(0)
     assert F.frontend_forward.launches == 1 and set(metrics) >= {"AP", "AP50"}
     assert (tmp_path / "last_ckpt.npck").exists()
+
+
+def _int8_pack(cin, cout, k, stride, groups, seed, device):
+    """A random conv with nonzero biases (U(0.2, 1): a halo pixel that leaked
+    into a DW sum would show) packed for the int8 kernels."""
+    from mafyolo_tpu_torch.ops import quant_conv as Q
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.randn((cout, cin // groups, k, k), generator=gen)
+    bias = torch.rand((cout,), generator=gen) * 0.8 + 0.2
+    return Q.pack(w, bias, torch.tensor(2.5), stride, k // 2 if stride == 1 else
+                  (k - 1) // 2, groups).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,cout,k,stride", [
+    ((2, 3, 66, 130), 16, 3, 2),       # layer 0: Cin 3, K 27 -> 32
+    ((2, 33, 63, 47), 72, 3, 2),       # odd H and W at stride 2
+    ((2, 64, 40, 40), 128, 1, 1),      # aligned 1x1: the 16-byte load path
+    ((2, 72, 126, 94), 1, 1, 1),
+    ((2, 1, 20, 20), 33, 1, 1)])
+def test_int8_conv_kernel_matches_plain(cuda_device, dtype, shape, cout, k, stride):
+    """Bit-equal to the plain version (exact f64 integer conv, the same
+    quantization and epilogue), and a second launch bit-identical."""
+    from mafyolo_tpu_torch.ops import quant_conv as Q
+    p = _int8_pack(shape[1], cout, k, stride, 1, 3, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 1.2).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    before = Q.int8_conv.launches
+    got = Q.int8_conv(x, p)
+    again = Q.int8_conv(x, p)
+    want = Q.int8_conv_plain(x, p)
+    torch.cuda.synchronize()
+    assert Q.int8_conv.launches == before + 2
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [3, 5, 7, 9])
+@pytest.mark.parametrize("shape", [(2, 72, 37, 23), (1, 33, 40, 40), (2, 1, 5, 3)])
+def test_int8_dw_kernel_matches_plain(cuda_device, dtype, k, shape):
+    from mafyolo_tpu_torch.ops import quant_conv as Q
+    p = _int8_pack(shape[1], shape[1], k, 1, shape[1], k, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) + 0.5).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    before = Q.int8_dw.launches
+    got = Q.int8_conv(x, p)
+    want = Q.int8_conv_plain(x, p)
+    torch.cuda.synchronize()
+    assert Q.int8_dw.launches == before + 1
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+    assert torch.equal(got, Q.int8_dw(x, p))
+
+
+def test_int8_kernels_read_channel_slices(cuda_device):
+    """A channel slice of a channels_last tensor (RepHDW's split) is read in
+    place with its pixel pitch; the result equals the plain version's on a
+    contiguous copy."""
+    from mafyolo_tpu_torch.ops import quant_conv as Q
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    full = torch.randn((2, 64, 24, 24), generator=gen, device=cuda_device) \
+        .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    for xs in (full[:, :32], full[:, 32:], full[:, 5:38]):
+        c = xs.shape[1]
+        for p in (_int8_pack(c, 48, 1, 1, 1, 7, cuda_device),
+                  _int8_pack(c, c, 5, 1, c, 8, cuda_device)):
+            got = Q.int8_conv(xs, p)
+            want = Q.int8_conv_plain(xs.contiguous(memory_format=torch.channels_last), p)
+            assert torch.equal(got, want)

@@ -128,17 +128,25 @@ assert ck["ema"] is None and "opt" not in ck
 def test_unported_inputs_raise(tmp_path):
     """A reference .pt checkpoint raises NotImplementedError naming its
     ROADMAP item, as do the train CLI's unported options (the Trainer's are
-    in tests/test_torch_trainer.py)."""
+    in tests/test_torch_trainer.py); --quant or --calib without the other
+    (QAT through the Trainer, no feature of the JAX CLI either) raises too,
+    and --quant --calib without --pretrained exits with a message
+    (tests/test_torch_quantize_cli.py drives the route itself)."""
     from mafyolo_tpu_torch.tools import train as train_cli
     from mafyolo_tpu_torch.utils.checkpoint import load_checkpoint
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         load_checkpoint(str(tmp_path / "yolov6n.pt"))
-    for argv, item in ((["--quant", "--calib"], 9), (["--quant"], 9),
-                       (["--device-count", "2"], 8)):
+    for argv, match in ((["--quant"], "QAT through the Trainer"),
+                        (["--calib"], "QAT through the Trainer"),
+                        (["--device-count", "2"], "Queue 1 item 8")):
         args = train_cli.get_args_parser().parse_args(
             argv + ["--output-dir", str(tmp_path / "runs")])
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        with pytest.raises(NotImplementedError, match=match):
             train_cli.main(args)
+    args = train_cli.get_args_parser().parse_args(
+        ["--quant", "--calib", "--output-dir", str(tmp_path / "runs")])
+    with pytest.raises(SystemExit, match="requires --pretrained"):
+        train_cli.main(args)
 
 
 def test_port_does_not_import_the_smoke_script():
@@ -188,3 +196,48 @@ def test_trainer_and_train_cli_default_to_the_card():
     assert inspect.signature(Trainer).parameters["device"].default == "cuda"
     assert train_cli.get_args_parser().parse_args([]).device == "cuda"
     assert train_cli.get_args_parser().parse_args(["--device", "cpu"]).device == "cpu"
+
+
+def test_quantize_cli_defaults_to_the_card():
+    """tools/quantize.py and the quant entry points run on the card unless
+    told --device cpu / device="cpu"."""
+    import inspect
+
+    from mafyolo_tpu_torch.core import quant as Q
+    from mafyolo_tpu_torch.tools import quantize as quantize_cli
+    argv = ["--weights", "w.npck", "--data", "d.yaml"]
+    assert quantize_cli.get_args_parser().parse_args(argv).device == "cuda"
+    assert quantize_cli.get_args_parser().parse_args(argv + ["--device", "cpu"]).device == "cpu"
+    for fn in (Q.ptq_calibrate, Q.qat_finetune, Q.quantized_predict_fn, Q.int8_predict_fn,
+               Q.quant_model):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
+@pytest.mark.parametrize("kind", ["dense", "dw"])
+def test_int8_wrappers_raise_without_their_library(kind, monkeypatch, tmp_path):
+    """Given a tensor off the CPU, an int8 conv wrapper builds and launches
+    its kernel or raises: with no nvcc to build it, it raises, and never
+    computes the plain version. (A meta tensor stands in for a CUDA one
+    here, the device checks waived; the card's tests launch the kernels.)"""
+    import torch
+
+    from mafyolo_tpu_torch.ops import _build
+    from mafyolo_tpu_torch.ops import quant_conv as Q
+    w = torch.randn(8, 1, 3, 3) if kind == "dw" else torch.randn(8, 8, 1, 1)
+    p = Q.pack(w, torch.zeros(8), torch.tensor(1.0), 1, 1 if kind == "dw" else 0,
+               8 if kind == "dw" else 1)
+    assert p.kind == kind
+
+    def plain(*a):
+        raise AssertionError("the plain version ran for a tensor off the CPU")
+    monkeypatch.setattr(Q, "int8_conv_plain", plain)
+    monkeypatch.setattr(Q, "_launch_checks", lambda *a: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build.Path, "exists", lambda self: False)
+    x = torch.empty((2, 8, 6, 6), device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        Q.int8_conv(x, p)

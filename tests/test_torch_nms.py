@@ -187,3 +187,31 @@ def test_matrix_words(m, words):
     """Scratch of the bit matrix: ceil(M/64) words a row, rows padded to a
     multiple of 64 (32 KB an image at M = 512, 512 KB at M = 2000)."""
     assert G.matrix_words(m) == words
+
+
+@pytest.mark.parametrize("a,nc,multi_label,agnostic", [(300, 5, True, False),
+                                                       (2100, 3, True, False),
+                                                       (700, 4, False, False),
+                                                       (700, 4, True, True)])
+def test_batched_nms_matches_jax(a, nc, multi_label, agnostic):
+    """ops/nms.py:batched_nms (quantized_predict_fn's NMS) against the JAX
+    one on [B, A, 5+nc] decodes with clustered boxes: two-stage top-M (M =
+    min(2000, A nc) pairs; A = 2100 takes more than one greedy block), keep
+    sets exact, boxes and scores within 1e-4."""
+    from mafyolo_tpu.ops.nms import batched_nms as jax_batched
+    from mafyolo_tpu_torch.ops.nms import batched_nms
+    rng = np.random.default_rng(a + nc)
+    ctr = rng.uniform(40, 600, (2, a // 20, 1, 2))
+    xy = (ctr + rng.normal(0, 6, (2, a // 20, 20, 2))).reshape(2, a, 2)
+    wh = rng.uniform(20, 90, (2, a, 2))
+    cls = rng.uniform(0, 1, (2, a, nc)) ** 4
+    pred = np.concatenate([xy, wh, np.ones((2, a, 1)), cls], -1).astype(np.float32)
+    kw = dict(conf_thres=0.03, iou_thres=0.65, max_det=300, multi_label=multi_label,
+              agnostic=agnostic)
+    want = {k: np.asarray(v) for k, v in jax_batched(jnp.asarray(pred), **kw).items()}
+    got = {k: v.numpy() for k, v in batched_nms(torch.from_numpy(pred), **kw).items()}
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    assert want["valid"].sum(1).min() > 20
+    np.testing.assert_array_equal(got["classes"], want["classes"])
+    np.testing.assert_allclose(got["scores"], want["scores"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0, atol=1e-4)

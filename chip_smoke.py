@@ -114,11 +114,14 @@ Phases, in order; any failure exits non-zero without a result line:
                 lists the gates): PTQ calibration at bs32@640 (max, card vs
                 CPU, percentile), the int8 conv kernels against their plain
                 versions bit for bit at every distinct site and odd shapes,
-                int8_predict_fn with the launch counts read around it (66
-                int8_conv, 16 int8_dw, NMS, no front-end), int8 against
-                fake-quant and the CPU, two QAT steps, tools/quantize.run
-                --eval on images held in memory, then the img/s of int8-real,
-                int8-sim and bf16 and each int8 kernel by class of site.
+                with and without the fused activation, and the fused SiLU
+                on every finite bf16 value, int8_predict_fn with the launch
+                counts read around it (66 int8_conv, 16 int8_dw, NMS, no
+                front-end), int8 against fake-quant and the CPU, that share
+                split into its quant and dtype effects, two QAT steps,
+                tools/quantize.run --eval on images held in memory, then
+                the img/s of int8-real, int8-sim and bf16 and each int8
+                kernel by site and class of site, warm and cold.
 Each entry of the "kernels" line carries bound_ms, the least time the card
 could take: the larger of the bytes moved (inputs read once, outputs written
 once) over 3.35 TB/s and the operations over the peak rate of the operand
@@ -403,10 +406,11 @@ def decode_nms_split(heads, iters=10):
             for k, (a, b) in parts.items()}
 
 
-def match(ref, got, min_score):
+def match(ref, got, min_score, unmatched=None):
     """(reference detections with score > min_score, how many of them have a
     detection in `got` of the same class, IoU >= 0.9 and |dscore| <= 0.01);
-    both are predict() dicts, on the CPU."""
+    both are predict() dicts, on the CPU. Given a list `unmatched`, append
+    (image, box, class, score) of each reference detection left unmatched."""
     from mafyolo_tpu_torch.ops.boxes import box_iou_pairwise
     n_ref = matched = 0
     for i in range(ref["valid"].shape[0]):
@@ -418,6 +422,11 @@ def match(ref, got, min_score):
                 & (iou >= 0.9))
         n_ref += int(sel.sum())
         matched += int(same.any(1).sum())
+        if unmatched is not None:
+            miss = ~same.any(1)
+            unmatched += [(i, bx, int(c), float(sc)) for bx, c, sc in zip(
+                ref["boxes"][i][sel][miss], ref["classes"][i][sel][miss],
+                ref["scores"][i][sel][miss])]
     return n_ref, matched
 
 
@@ -1953,67 +1962,73 @@ INT8_SHARE_FLOOR = {"int8_sim": 0.056, "cpu": 0.537}
 QUANT_BATCHES = 4           # bs32@640 batches of the int8 predict
 
 
-def _int8_site_bound(p, x, out):
-    """(bytes, int8 operations) of one int8 conv launch: its input read
-    once, its output written once, the int8 weights and the f32 scale and
-    bias; 2 operations per multiply-add."""
-    b, c, h, w = x.shape
-    ho, wo = out.shape[2:]
-    macs = b * ho * wo * p.cout * (c // p.groups) * p.k * p.k
-    nbytes = (x.numel() + out.numel()) * x.element_size() + p.w_q.numel() + 8 * p.cout
-    return nbytes, 2 * macs
-
-
-def _site_class(p):
-    return f"dw{p.k}" if p.kind == "dw" else f"{p.k}x{p.k}s{p.stride}"
-
-
-def _int8_inputs(model, x):
-    """{module name: (pack, input)} of every QuantConv2d of an int8 model
-    in one forward of x."""
-    from mafyolo_tpu_torch.models.blocks import QuantConv2d
-    seen, hooks = {}, []
-
-    def keep(name):
-        def hook(mod, args):
-            seen.setdefault(name, (mod.int8, args[0]))
-        return hook
-    for name, m in model.named_modules():
-        if isinstance(m, QuantConv2d):
-            hooks.append(m.register_forward_pre_hook(keep(name)))
-    model(x)
-    for h in hooks:
-        h.remove()
-    return seen
-
-
 def _odd_int8_sites(dev):
-    """(tag, pack, input) of int8 convs at shapes the model does not give:
-    Cin 3 at 2x126x94, a 3x3 stride-2 conv at odd H and W, C of 1, 33 and
-    72, every DW kernel size on 37x23; nonzero biases (U(0.2, 1)); bf16
-    and f32 inputs."""
+    """(tag, pack, input, act) of int8 convs at shapes the model does not
+    give: Cin 3 at 2x126x94 and at odd 67x45 (3x3 s2), a 3x3 stride-2 conv at
+    odd H and W, C of 1, 33 and 72, 24-channel 41x39 (3 x 19 tiles), every DW
+    kernel size on 37x23, the depthwise tile edges of N's sites (k 9 on a
+    whole 20x20 image at C 288, k 7 on 40x40 at C 144, k 3 at C 72 across
+    16-pixel tiles of 41x39); nonzero biases (U(0.2, 1)); bf16 and f32
+    inputs; the dense ones also with SiLU and with ReLU fused."""
     import torch
 
     from mafyolo_tpu_torch.ops import quant_conv as QC
     gen = torch.Generator().manual_seed(12)
     out = []
     for shape, o, k, stride, groups in (((2, 3, 126, 94), 16, 3, 2, 1),
+                                        ((1, 3, 67, 45), 24, 3, 2, 1),
                                         ((2, 33, 63, 47), 72, 3, 2, 1),
+                                        ((2, 24, 41, 39), 48, 3, 2, 1),
                                         ((2, 1, 40, 40), 33, 1, 1, 1),
                                         ((2, 72, 37, 23), 1, 1, 1, 1),
                                         ((2, 33, 37, 23), 33, 3, 1, 33),
                                         ((2, 72, 37, 23), 72, 5, 1, 72),
                                         ((2, 1, 37, 23), 1, 7, 1, 1),
-                                        ((2, 72, 37, 23), 72, 9, 1, 72)):
+                                        ((2, 72, 37, 23), 72, 9, 1, 72),
+                                        ((2, 288, 20, 20), 288, 9, 1, 288),
+                                        ((2, 144, 40, 40), 144, 7, 1, 144),
+                                        ((2, 72, 41, 39), 72, 3, 1, 72)):
         w = torch.randn((o, shape[1] // groups, k, k), generator=gen)
         bias = torch.rand((o,), generator=gen) * 0.8 + 0.2
         pad = k // 2 if stride == 1 else (k - 1) // 2
         p = QC.pack(w, bias, torch.tensor(2.5), stride, pad, groups).to(dev)
         x = torch.randn(shape, generator=gen) * 1.2 + 0.3
+        acts = (None, "silu", "relu") if p.kind == "dense" else (None,)
         for dt in (torch.bfloat16, torch.float32):
-            out.append((f"{shape}->{o} k{k}s{stride}g{groups} {dt}", p,
-                        x.to(dev, dt).contiguous(memory_format=torch.channels_last)))
+            for act in acts:
+                out.append((f"{shape}->{o} k{k}s{stride}g{groups} {dt} {act}", p,
+                            x.to(dev, dt).contiguous(memory_format=torch.channels_last), act))
     return out
+
+
+def share_split(tag, ref, got, dec_ref, dec_got, conf=0.03, same_tol=1e-3):
+    """One comparison of two int8 predicts of the same batch: the share of
+    `ref`'s detections (score > 0.1) that `got` matches (match()); the
+    largest and mean |dscore| over the live (anchor, class) pairs, those
+    above conf on either side (random_deploy leaves 2 live classes a head
+    level: the other 74 sit at bias -30); and each unmatched reference
+    detection sorted by its own anchor-class score on the two sides: within
+    same_tol of each other (an NMS survivor flip: the same score, another
+    survivor or box) or moved. dec_* are decode_eval outputs, on the CPU."""
+    import torch
+    unmatched = []
+    n, m = match(ref, got, 0.1, unmatched)
+    sr, sg = dec_ref[..., 5:].float(), dec_got[..., 5:].float()
+    live = (sr > conf) | (sg > conf)
+    d = (sr - sg).abs()[live]
+    xy, wh = dec_ref[..., :2].float(), dec_ref[..., 2:4].float()
+    boxes = torch.cat([xy - wh / 2, xy + wh / 2], -1)
+    flips = moved = 0
+    for i, bx, c, sc in unmatched:
+        a = ((boxes[i] - bx).abs().amax(-1) + (sr[i, :, c] - sc).abs()).argmin()
+        if (sr[i, a, c] - sg[i, a, c]).abs().item() <= same_tol:
+            flips += 1
+        else:
+            moved += 1
+    return {"split": tag, "ref_dets_above_0p1": n, "matched": m, "share": m / max(n, 1),
+            "live_pairs": int(live.sum()), "live_dscore_max": d.max().item(),
+            "live_dscore_mean": d.mean().item(), "unmatched": n - m,
+            "unmatched_same_score": flips, "unmatched_score_moved": moved}
 
 
 def quant_phase(dev, folded, card):
@@ -2023,25 +2038,35 @@ def quant_phase(dev, folded, card):
     (all 88 amax > 0); 2 images calibrated on the card and on the CPU
     (plain versions) agree at rtol 1e-5; percentile calibration once (every
     amax in (0, its max]). int8_conv_check: the int8 kernels against their
-    plain versions on the real bf16 input of every distinct int8 conv site
-    of N (bs2@640) and at _odd_int8_sites, bit for bit, a second launch
-    bit-identical. quant_int8: int8_predict_fn (bf16) over QUANT_BATCHES
-    bs32@640 batches with every launch count read around that run: 66
+    plain versions (then torch's activation) on the real bf16 input of every
+    distinct int8 conv site of N (bs2@640), with the activation its launch
+    fuses and without, and at _odd_int8_sites, bit for bit, a second launch
+    bit-identical; the fused SiLU on every finite bf16 value
+    (utils/sample.py:int8_silu_every_bf16). quant_int8: int8_predict_fn
+    (bf16) over QUANT_BATCHES bs32@640 batches with every launch count read
+    around that run: 66
     int8_conv and 16 int8_dw launches a predict, 1 NMS launch a batch (8 on
     overflow), no front-end launch; int8 against quantized_predict_fn
     (fake-quant, f32) on a batch: mean |cls| of the decodes < 0.02 and the
     share of int8-sim detections (score > 0.1) matched at least
     INT8_SHARE_FLOOR["int8_sim"]; card int8 in f32 against the CPU's on 2
-    images, at least INT8_SHARE_FLOOR["cpu"] matched. quant_qat: two QAT
+    images, at least INT8_SHARE_FLOOR["cpu"] matched; int8_share_split:
+    that int8-sim share split into the quant effect (int8-real in f32
+    against int8-sim) and the dtype effect (int8-real bf16 against f32),
+    each with its share, live-class |dscore| and NMS survivor flips
+    (share_split), reported, not gated. quant_qat: two QAT
     steps at bs8@320 (finite losses, parameters moved), the first loss of 2
     images on the card against the CPU's at rtol 1e-3, both in f64.
     quant_cli: tools/quantize.run --eval on the eval
     phase's images held in memory (fp, int8-sim, int8-real AP).
     timing_quant: img/s of int8-real, int8-sim and the bf16 float predict
-    on the same batches; per class of site the int8 kernel's ms a predict,
-    its plain version's, its launches, its bound, and the yardsticks:
-    torch._int_mm on the 1x1 sites' quantized operands, cuDNN's bf16 conv
-    of the other sites (no int8 conv exists in PyTorch on the card)."""
+    on the same batches, and over them under the profiler the device's busy
+    ms a batch and idle share of int8-real and bf16; per site and per class of site the int8 kernel's
+    ms on warm and on cold inputs, its plain version's, its launches, its
+    bound, and the yardsticks (tools/tune_kernels.py:time_int8_site):
+    torch._int_mm on the dense sites' quantized operands, cuDNN's bf16 conv
+    of each site (no int8 conv exists in PyTorch on the card). The kernels
+    line's ms is the cold sum."""
     import pickle
     import tempfile
 
@@ -2054,8 +2079,9 @@ def quant_phase(dev, folded, card):
     from mafyolo_tpu_torch.ops import greedy_nms as G
     from mafyolo_tpu_torch.ops import quant_conv as QC
     from mafyolo_tpu_torch.tools import quantize as QT
-    from mafyolo_tpu_torch.utils.sample import ArrayDataset, eval_set, evaler, images
-    from mafyolo_tpu_torch.utils.timing import cuda_ms
+    from mafyolo_tpu_torch.tools.tune_kernels import int8_inputs, time_int8_model
+    from mafyolo_tpu_torch.utils.sample import (ArrayDataset, eval_set, evaler, images,
+                                                int8_silu_every_bf16)
     name, bf16 = "maf-yolo-n", torch.bfloat16
 
     # ---- quant_calib
@@ -2089,26 +2115,35 @@ def quant_phase(dev, folded, card):
 
     # ---- int8_conv_check: every distinct site of N at bs2@640, then odd shapes
     p8 = Q.int8_predict_fn(name, NC, folded, quant, device=dev)
-    seen = _int8_inputs(p8.model, Q.normalize(images(9, 2), bf16, dev))
-    kinds = [p.kind for p, _ in seen.values()]
+    seen = int8_inputs(p8.model, Q.normalize(images(9, 2), bf16, dev))
+    kinds = [p.kind for p, _, _ in seen.values()]
     check(len(seen) == 82 and kinds.count("dense") == 66 and kinds.count("dw") == 16,
           f"int8 sites: {len(seen)} ({kinds.count('dense')} dense, {kinds.count('dw')} dw)")
     distinct = {}
-    for mname, (p, x) in seen.items():
-        distinct.setdefault((p.kind, p.cin, p.cout, p.k, p.stride, tuple(x.shape[2:])),
-                            (mname, p, x))
-    cases = [(mname, p, x) for mname, p, x in distinct.values()] + _odd_int8_sites(dev)
+    for mname, (p, x, act) in seen.items():
+        distinct.setdefault((p.kind, p.cin, p.cout, p.k, p.stride, tuple(x.shape[2:]), act),
+                            (mname, p, x, act))
+    # each site with the activation its launch fuses, and without it
+    cases = [c for mname, p, x, act in distinct.values()
+             for c in ((mname, p, x, act),) + (((mname, p, x, None),) if act else ())]
+    cases += _odd_int8_sites(dev)
     conv_err = {"dense": 0.0, "dw": 0.0}
     records = []
-    for tag, p, x in cases:
-        got, again, want = QC.int8_conv(x, p), QC.int8_conv(x, p), QC.int8_conv_plain(x, p)
+    for tag, p, x, act in cases:
+        got, again = QC.int8_conv(x, p, act), QC.int8_conv(x, p, act)
+        want = QC.ACTS[act](QC.int8_conv_plain(x, p))
         err = (got.float() - want.float()).abs().max().item()
         conv_err[p.kind] = max(conv_err[p.kind], err)
-        records.append([tag, p.kind, list(x.shape), p.cout, p.k, p.stride, err])
-        check(torch.equal(got, want), f"int8 {p.kind} kernel differs from plain at {tag}: {err}")
+        records.append([tag, p.kind, list(x.shape), p.cout, p.k, p.stride, act, err])
+        check(torch.equal(got, want), f"int8 {p.kind} kernel differs from plain at {tag} "
+              f"({act}): {err}")
         check(torch.equal(got, again), f"int8 {p.kind} kernel: a second launch differs at {tag}")
-    emit(phase="int8_conv_check", sites=len(distinct), odd_cases=len(cases) - len(distinct),
-         max_abs_err=conv_err, cases=records)
+    n_vals, silu_diff = int8_silu_every_bf16(dev)
+    emit(phase="int8_conv_check", sites=len(distinct), cases=len(cases),
+         odd_cases=len(cases) - len(distinct) - sum(1 for *_, a in distinct.values() if a),
+         max_abs_err=conv_err, fused_acts=list(QC.FUSED_ACTS), silu_bf16_values=n_vals,
+         silu_bf16_differ=silu_diff, records=records)
+    check(silu_diff == 0, f"fused SiLU differs from torch's on {silu_diff} bf16 values")
 
     # ---- quant_int8: the int8 predict, launch counts read around it
     psim = Q.quantized_predict_fn(name, NC, folded, quant, device=dev)
@@ -2136,6 +2171,35 @@ def quant_phase(dev, folded, card):
     dcls = (cls8 - cls_sim).abs()
     n_sim, m_sim = match(on_cpu(psim(batches[0])), on_cpu(outs8[0]), 0.1)
     p8_32 = Q.int8_predict_fn(name, NC, folded, quant, dtype=torch.float32, device=dev)
+    # the int8-sim share split: the quant effect (int8-real against int8-sim,
+    # both f32) and the dtype effect (int8-real bf16 against int8-real f32)
+    dets = {"real": on_cpu(outs8[0]), "real_f32": on_cpu(p8_32(batches[0])),
+            "sim": on_cpu(psim(batches[0]))}
+    decs = {"real": decode_eval(p8.model(x8), (8, 16, 32)).cpu(),
+            "real_f32": decode_eval(p8_32.model(x32), (8, 16, 32)).cpu(),
+            "sim": decode_eval(psim.model(x32), (8, 16, 32)).cpu()}
+    splits = [share_split(tag, dets[r], dets[g], decs[r], decs[g])
+              for tag, r, g in (("int8_sim_vs_real_bf16", "sim", "real"),
+                                ("quant_f32", "sim", "real_f32"),
+                                ("dtype_real", "real_f32", "real"))]
+    # the quant effect layer by layer: each site's int8 kernel (f32) against
+    # the int8-sim module on the same input; the sim rounds its operands once
+    # more (x + (q - x)), sums in f32 and clips at -128 where real clips at -127
+    sims = dict(psim.model.named_modules())
+    layer_rel = []
+    for mname, (p, xi, _) in int8_inputs(p8_32.model, x32).items():
+        y_real, y_sim = QC.int8_conv(xi, p), sims[mname](xi)
+        layer_rel.append((((y_real - y_sim).abs().max() / y_sim.abs().max().clamp_min(1e-30))
+                          .item(), mname, int((xi.float() / p.x_scale_t < -127.5).sum())))
+    layer_rel.sort(reverse=True)
+    emit(phase="int8_share_split", splits=splits, layer_max_rel_real_vs_sim=layer_rel[:5],
+         sim_inputs_below_m127p5=sum(r[2] for r in layer_rel),
+         note="share: of ref's detections above 0.1 matched by got; live_dscore over "
+              "(anchor, class) pairs above conf 0.03 on either side; unmatched_same_score: "
+              "the anchor-class score within 1e-3 on both sides (an NMS survivor flip); "
+              "layer_max_rel: over the 82 sites, max |kernel - sim module| / max |sim| "
+              "on the f32 int8 model's own inputs of one bs32 forward")
+    del decs
     p8_cpu = Q.int8_predict_fn(name, NC, folded, quant, dtype=torch.float32, device="cpu")
     n_cpu, m_cpu = match(p8_cpu(two), on_cpu(p8_32(two.to(dev))), 0.1)
     emit(phase="quant_int8", batches=n, launches=launches, nms_launches_per_batch=nms_per,
@@ -2223,54 +2287,47 @@ def quant_phase(dev, folded, card):
         img_s, mean_ms, p50, p90 = route_timing(fn, batches)
         rate[tag] = {"img_per_s": img_s, "batch_ms_mean": mean_ms, "p50_batch_ms": p50,
                      "p90_batch_ms": p90}
+    # the device's busy time over the same batches under the profiler: where
+    # the idle share is large, the host's eager launches set the pace
+    from torch.profiler import ProfilerActivity, profile
+    for tag, fn in (("int8_real", p8), ("bf16", ev.predict)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for bt in batches:
+                fn(bt)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_us, spans, _ = device_busy(prof)
+        check(busy_us > 0, f"timing_quant: the profiler saw no device activity ({tag})")
+        rate[tag].update(profiled_batch_ms=wall_ms / len(batches),
+                         device_busy_ms=busy_us / 1e3 / len(batches),
+                         idle_share=1 - busy_us / 1e3 / wall_ms,
+                         device_ops_per_batch=len(spans) / len(batches))
     del ev
-    seen = _int8_inputs(p8.model, x8)
-    classes, total = {}, {"dense": {}, "dw": {}}
-    for mname, (p, x) in seen.items():
-        out = QC.int8_conv(x, p)
-        nbytes, ops = _int8_site_bound(p, x, out)
-        row = classes.setdefault(_site_class(p), {})
-        ms = cuda_ms(lambda: QC.int8_conv(x, p), 5)
-        plain_ms = cuda_ms(lambda: QC.int8_conv_plain(x, p), 2, warmup=1)
-        site_bound = bound(nbytes, ops, "int8")
-        if p.kind == "dense" and p.k == 1:
-            # the library's int8 GEMM on the same quantized operands (K and
-            # O padded with zeros to multiples of 8, as _int_mm asks)
-            a = QC.quantize(x, p.x_scale_t).to(torch.int8).permute(0, 2, 3, 1) \
-                .reshape(-1, p.cin)
-            kp, op = -(-p.cin // 8) * 8, -(-p.cout // 8) * 8
-            a = torch.nn.functional.pad(a, (0, kp - p.cin)).contiguous()
-            bmat = torch.nn.functional.pad(p.w_q[:, :, 0, 0].t(),
-                                           (0, op - p.cout, 0, kp - p.cin)).contiguous()
-            yard = ("library_ms", cuda_ms(lambda: torch._int_mm(a, bmat), 5))
-        else:
-            # no int8 conv in PyTorch on the card: cuDNN's bf16 conv of the same shape
-            wb, bb = p.w_q.to(bf16), p.bias.to(bf16)
-            xb = x.to(bf16)
-            yard = ("cudnn_bf16_ms", cuda_ms(lambda: torch.nn.functional.conv2d(
-                xb, wb, bb, p.stride, p.pad, 1, p.groups), 5))
-        for r in (row, total[p.kind]):
-            for key, v in (("launches_per_predict", 1), ("ms", ms), ("plain_ms", plain_ms),
-                           ("bytes", nbytes), ("ops", ops),
-                           ("bound_ms", site_bound["bound_ms"]), yard):
-                r[key] = r.get(key, 0) + v
-    for r in list(classes.values()) + list(total.values()):
-        t_b, t_f = r["bytes"] / HBM_BYTES_PER_S * 1e3, r["ops"] / PEAK_FLOPS["int8"] * 1e3
-        r["bound_by"] = "bytes" if t_b >= t_f else "operations"
-        r["bound_over_kernel"] = r["bound_ms"] / r["ms"]
+    recs, classes, total = time_int8_model(p8.model, x8)
     emit(phase="timing_quant", model=name, batch=BATCH, img=IMG, card=card, predict=rate,
          classes=classes, per_kernel=total,
-         note="ms: CUDA events around eager launches on one forward's inputs, summed over "
-              "the sites of a class; library_ms: torch._int_mm on the 1x1 sites' quantized "
-              "operands; cudnn_bf16_ms: no int8 conv exists in PyTorch on the card, so "
-              "cuDNN's bf16 conv of the same shape, a yardstick of another function")
+         sites=[{k: r[k] for k in ("site", "class", "shape", "ldx", "cout", "act", "ms",
+                                   "cold_ms", "bound_ms", "int_mm_ms") if k in r}
+                for r in recs],
+         note="ms: CUDA events around eager launches on one forward's inputs (warm: a "
+              "small input stays in L2), cold_ms: on copies of each input taken in turn, "
+              "none in L2; summed over the sites of a class; int_mm_ms: torch._int_mm on "
+              "the dense sites' quantized operands (3x3 s2: unfolded to [M, 9C], the "
+              "unfold not timed); cudnn_bf16_ms: no int8 conv exists in PyTorch on the "
+              "card, so cuDNN's bf16 conv of the same shape, a yardstick of another function")
     return [
         {"name": kname, "route": "cuda", "source": f"mafyolo_tpu_torch/csrc/{kname}.cu",
          "replaces": "mafyolo_tpu/models/blocks.py:306-321", "launches": launches[kname],
-         "max_abs_err": conv_err[kind], "ms": total[kind]["ms"],
-         "plain_ms": total[kind]["plain_ms"], "bound_ms": total[kind]["bound_ms"],
-         "bound_by": total[kind]["bound_by"], "library_ms": None}
-        for kname, kind in (("int8_conv", "dense"), ("int8_dw", "dw"))]
+         "max_abs_err": conv_err[kind], "ms": total[kind]["cold_ms"],
+         "warm_ms": total[kind]["ms"], "plain_ms": total[kind]["plain_ms"],
+         "bound_ms": total[kind]["bound_ms"], "bound_by": total[kind]["bound_by"],
+         "library_ms": lib, "library_covers": covers}
+        for kname, kind, lib, covers in (
+            ("int8_conv", "dense", classes["1x1s1"]["int_mm_ms"],
+             "torch._int_mm on the quantized operands of the 1x1 sites only (54 of the "
+             "66 launches); the 3x3 s2 sites' is timing_quant's classes['3x3s2']"),
+            ("int8_dw", "dw", None, "no int8 depthwise conv in PyTorch"))]
 
 
 if __name__ == "__main__":

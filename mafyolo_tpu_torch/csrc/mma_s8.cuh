@@ -1,6 +1,8 @@
-// int8 tensor-core fragments of the int8 conv kernel (csrc/int8_conv.cu):
-// `mma.sync.aligned.m16n8k32` with s8 operands and s32 accumulation, the s8
-// counterpart of mma_bf16.cuh's m16n8k16.
+// Device code the int8 kernels share (csrc/int8_conv.cu, csrc/int8_dw.cu):
+// the tensor-core fragments of `mma.sync.aligned.m16n8k32` with s8 operands
+// and s32 accumulation (the s8 counterpart of mma_bf16.cuh's m16n8k16), the
+// quantize, dequantize and rounding steps of their exactness contract, and
+// multiply-shift division.
 //
 // In 32-bit registers the fragments are those of m16n8k16 bf16, with four
 // bytes in a register where bf16 has two: lane = 4 * g + t holds
@@ -46,9 +48,47 @@ __device__ __forceinline__ float dequant(int acc, float scale, float bias) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
+// v rounded to T (round to nearest even), as T and back in f32.
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// Two neighbouring elements, each rounded once to the stored type.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// n / d for 0 <= n < 2^31 and a divisor d >= 1 fixed for a launch, by one
+// multiply-high, an add and a shift (Granlund and Montgomery's method): the
+// kernels' index arithmetic divides by runtime widths on every element.
+struct FastDiv {
+  uint32_t m, l;
+  int d;
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi(m, (uint32_t)n) + (uint32_t)n) >> l);
+  }
+  __device__ __forceinline__ int mod(int n, int q) const { return n - q * d; }
+};
+
+inline FastDiv make_div(int d) {
+  uint32_t l = 0;
+  while ((1ull << l) < (unsigned long long)d) ++l;
+  const uint64_t m = ((1ull << 32) * ((1ull << l) - (uint64_t)d)) / (uint64_t)d + 1;
+  return FastDiv{(uint32_t)m, l, d};
+}
+
+// torch's SiLU on the card, x / (1 + exp(-x)) in f32: expf (no fast math)
+// and an IEEE division, so that a fused SiLU gives torch's bits.
+__device__ __forceinline__ float silu_exact(float x) {
+  return __fdiv_rn(x, __fadd_rn(1.0f, expf(-x)));
 }
 
 }  // namespace mma

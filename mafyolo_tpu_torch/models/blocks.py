@@ -212,26 +212,29 @@ class QuantConv2d(_Quantizer, nn.Conv2d):
     285-329): per-tensor activation amax, per-output-channel weights.
     "calib": record |x|, conv with fake-quant weights; "fake": fake-quant x
     (clip [-128, 127]) and weights, STE; "int8": the real int8 conv of
-    ops/quant_conv.py (clip [-127, 127]) on the pack that pack_int8 made."""
+    ops/quant_conv.py (clip [-127, 127]) on the pack that pack_int8 made.
+    `act` is the activation that follows the conv: the int8 kernel applies
+    it in its epilogue (ops/quant_conv.py:FUSED_ACTS), the other modes after
+    the conv."""
 
     def __init__(self, *args, calibrate: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
         self._init_quant(calibrate)
         self.int8 = None
 
-    def forward(self, x):
+    def forward(self, x, act: Optional[str] = None):
         if self.mode == "int8":
             if self.int8 is None:
                 raise RuntimeError("int8 mode without packed weights: call pack_int8")
-            return QC.int8_conv(x, self.int8)
+            return QC.int8_conv(x, self.int8, act)
         w = self.weight
         w = fake_quant_sym(w, w.detach().abs().amax((1, 2, 3), keepdim=True))
         if self.mode == "calib":
             self._observe(x)
         else:
             x = fake_quant_sym(x.float(), self.act_amax).to(x.dtype)
-        return F.conv2d(x, w.to(x.dtype), self.bias.to(x.dtype), self.stride,
-                        self.padding, self.dilation, self.groups)
+        return _activate(F.conv2d(x, w.to(x.dtype), self.bias.to(x.dtype), self.stride,
+                                  self.padding, self.dilation, self.groups), act)
 
 
 def set_quant_mode(model: nn.Module, mode: str, hist_bins: int = 0):
@@ -272,6 +275,8 @@ class ConvAct(nn.Module):
                                   bias=True)
 
     def forward(self, x):
+        if isinstance(self.conv, QuantConv2d):
+            return self.conv(x, act=self.act)
         return _activate(self.conv(x), self.act)
 
 
@@ -291,7 +296,8 @@ class RepVGGBlock(nn.Module):
         super().__init__()
         self.deploy = deploy
         if deploy:
-            self.fused = ConvAct(cin, cout, 3, stride, quant=quant, calibrate=calibrate)
+            self.fused = ConvAct(cin, cout, 3, stride, act="relu", quant=quant,
+                                 calibrate=calibrate)
             return
         self.dense = ConvBN(cin, cout, 3, stride)
         self.pw = ConvBN(cin, cout, 1, stride, pad=0)
@@ -300,7 +306,7 @@ class RepVGGBlock(nn.Module):
 
     def forward(self, x):
         if self.deploy:
-            return F.relu(self.fused(x))
+            return self.fused(x)
         y = self.dense(x) + self.pw(x)
         if hasattr(self, "idbn"):
             y = y + self.idbn(x)

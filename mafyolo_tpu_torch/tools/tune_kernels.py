@@ -5,6 +5,8 @@
     python -m mafyolo_tpu_torch.tools.tune_kernels dw_grad [all]
     python -m mafyolo_tpu_torch.tools.tune_kernels nms
     python -m mafyolo_tpu_torch.tools.tune_kernels stem
+    python -m mafyolo_tpu_torch.tools.tune_kernels int8
+    python -m mafyolo_tpu_torch.tools.tune_kernels int8_caps
 
 `frontend`: the bf16 front-end kernel at bs32@640 for MAF-YOLO-N, -S and -M
 over a list of (tile rows, tile columns, threads), each checked against the
@@ -36,6 +38,21 @@ copies of the input taken in turn (none in L2), with the share of thread 0's
 clocks each phase takes (input wait, MMA, store, barriers); the last line
 sums each (rows, blocks an SM) over the three models, fastest first, beside
 the pair the wrapper uses (ops/stem.py:ROWS, BLOCKS_PER_SM).
+`int8`: the real-int8 conv kernels at every site of MAF-YOLO-N's int8
+predict (random deploy weights, max-calibrated on 2 bs32@640 batches) at
+bs32@640 in bf16, each checked against its plain version first: per site
+the kernel's ms on the same input (warm) and on copies taken in turn, none
+in L2 (cold), without its fused activation, the bound, torch._int_mm on the
+site's quantized operands (dense; 3x3 s2 unfolded to [M, 9C], the unfold
+not timed) and cuDNN's bf16 conv of the shape (another function), the share
+of block clocks each phase takes (stage, MMA, epilogue, store; DW: stage,
+compute, store); then sums per class of site and per kernel; then a cold
+sweep of the tiles at each site with a tile choice (dense k > 1: the widths
+ops/quant_conv.py:conv_tile weighs; DW: square sides and whole images: the
+table ops/quant_conv.py:DW_TILE was read from it).
+`int8_caps`: each int8 kernel rebuilt with each of its compile-time knobs in
+INT8_CAPS (registers a thread, B lookahead) and timed at every
+site of its kind, sums per class: the kernels' defaults were read from it.
 Weights and inputs are random, from a seed. Each prints one JSON object a
 line and needs a CUDA card.
 """
@@ -54,6 +71,7 @@ from mafyolo_tpu_torch.ops import _build
 from mafyolo_tpu_torch.ops import dw_grad as DG
 from mafyolo_tpu_torch.ops import frontend as FE
 from mafyolo_tpu_torch.ops import neck as NK
+from mafyolo_tpu_torch.ops import quant_conv as QC
 from mafyolo_tpu_torch.ops import stem as ST
 from mafyolo_tpu_torch.utils import sample
 from mafyolo_tpu_torch.utils.bridge import random_folded_variables
@@ -312,7 +330,263 @@ def stem(dev):
                       "wrapper": f"{ST.ROWS}x{ST.BLOCKS_PER_SM}"}), flush=True)
 
 
-COMMANDS = {"frontend": frontend, "neck": neck, "dw_grad": dw_grad, "nms": nms, "stem": stem}
+# ---- int8: the real-int8 conv kernels at every site of N's int8 predict
+
+def int8_inputs(model, x):
+    """{module name: (pack, input, act)} of every QuantConv2d of an int8 model
+    in one forward of x; act is the activation its launch fuses (None when
+    the model applies it after the conv). The hook returns None: a pre-hook
+    that returns a value replaces the module's arguments."""
+    from mafyolo_tpu_torch.models.blocks import QuantConv2d
+    seen, hooks = {}, []
+
+    def keep(name):
+        def hook(mod, args, kwargs):
+            seen.setdefault(name, (mod.int8, args[0], kwargs.get("act")))
+        return hook
+    for name, m in model.named_modules():
+        if isinstance(m, QuantConv2d):
+            hooks.append(m.register_forward_pre_hook(keep(name), with_kwargs=True))
+    model(x)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def int8_site_bound(p, x, out):
+    """(bytes, int8 operations) of one int8 conv launch: its input read
+    once, its output written once, the int8 weights and the f32 scale and
+    bias; 2 operations per multiply-add."""
+    b, c, h, w = x.shape
+    ho, wo = out.shape[2:]
+    macs = b * ho * wo * p.cout * (c // p.groups) * p.k * p.k
+    nbytes = (x.numel() + out.numel()) * x.element_size() + p.w_q.numel() + 8 * p.cout
+    return nbytes, 2 * macs
+
+
+def int8_site_class(p):
+    return f"dw{p.k}" if p.kind == "dw" else f"{p.k}x{p.k}s{p.stride}"
+
+
+def int_mm_operands(p, x):
+    """torch._int_mm's operands for a dense site: the quantized input
+    unfolded to [M, k*k*C] in (ky, kx, c) order, and the int8 weight
+    [k*k*C, O]; K and O padded with zeros to multiples of 8, as _int_mm asks.
+    The unfold is host-side preparation and is not part of a timed call."""
+    F = torch.nn.functional
+    xq = QC.quantize(x, p.x_scale_t).to(torch.int8).permute(0, 2, 3, 1)
+    b, h, w, c = xq.shape
+    k, s, pad = p.k, p.stride, p.pad
+    ho, wo = (h + 2 * pad - k) // s + 1, (w + 2 * pad - k) // s + 1
+    if k > 1 or s > 1 or pad:
+        xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+        xq = torch.cat([xp[:, ky:ky + s * (ho - 1) + 1:s, kx:kx + s * (wo - 1) + 1:s]
+                        for ky in range(k) for kx in range(k)], -1)
+    kk = k * k * c
+    k8, o8 = -(-kk // 8) * 8, -(-p.cout // 8) * 8
+    a = F.pad(xq.reshape(-1, kk), (0, k8 - kk)).contiguous()
+    wm = p.w_q.permute(2, 3, 1, 0).reshape(kk, p.cout)
+    return a, F.pad(wm, (0, o8 - p.cout, 0, k8 - kk)).contiguous()
+
+
+INT8_PHASES = {"dense": ("stage", "mma", "epilogue", "store"),
+               "dw": ("stage", "compute", "store")}
+
+
+def int8_phases(p, x, act=None, tile=None):
+    """The share of thread 0's clocks each phase of one launch takes, summed
+    over the blocks."""
+    names = INT8_PHASES[p.kind]
+    clocks = torch.zeros(len(names), dtype=torch.int64, device=x.device)
+    if p.kind == "dense":
+        QC.conv_launch(x, p, act if act in QC.FUSED_ACTS else None, tile, clocks)
+    else:
+        QC.dw_launch(x, p, tile, clocks)
+    torch.cuda.synchronize()
+    return dict(zip(names, (clocks.double() / clocks.sum()).tolist()))
+
+
+def time_int8_site(p, x, act=None, plain=True, phases=False):
+    """One int8 conv site on the card: the kernel's ms on the same input
+    (warm: a 20 px input stays in L2) and on copies of it taken in turn, enough
+    that none is in L2 (cold), its bytes, operations and bound, the plain
+    version's ms, and the yardsticks: torch._int_mm on the site's quantized
+    operands (dense sites) and cuDNN's bf16 conv of the same shape (another
+    function: no int8 conv exists in PyTorch on the card). equal_to_plain:
+    the kernel's output (activation included) against the plain version's,
+    bit for bit."""
+    out = QC.int8_conv(x, p, act)
+    nbytes, ops = int8_site_bound(p, x, out)
+    equal = torch.equal(out, QC.ACTS[act](QC.int8_conv_plain(x, p)))
+    sets = sample.cold_sets((x,))
+    rec = {"shape": list(x.shape), "ldx": x.stride(3), "cout": p.cout, "k": p.k,
+           "stride": p.stride, "act": act, "equal_to_plain": equal, "launches": 1,
+           "ms": cuda_ms(lambda: QC.int8_conv(x, p, act), 5),
+           "cold_ms": cuda_ms(sample.in_turn(lambda x: QC.int8_conv(x, p, act), sets),
+                              max(10, len(sets))),
+           "bytes": nbytes, "ops": ops,
+           "bound_ms": max(nbytes / 3.35e12, ops / 1979e12) * 1e3}
+    del sets
+    if act is not None:     # the same launch without the fused activation
+        rec["no_act_ms"] = cuda_ms(lambda: QC.int8_conv(x, p, None), 5)
+    if phases:
+        rec["phase_share"] = int8_phases(p, x, act)
+    if plain:
+        rec["plain_ms"] = cuda_ms(lambda: QC.int8_conv_plain(x, p), 2, warmup=1)
+    if p.kind == "dense":
+        a, bm = int_mm_operands(p, x)
+        rec["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(a, bm), 5)
+        del a, bm
+    wb, bb, xb = p.w_q.to(torch.bfloat16), p.bias.to(torch.bfloat16), x.to(torch.bfloat16)
+    rec["cudnn_bf16_ms"] = cuda_ms(lambda: torch.nn.functional.conv2d(
+        xb, wb, bb, p.stride, p.pad, 1, p.groups), 5)
+    return rec
+
+
+def sum_int8_sites(recs):
+    """Per class of site and per kernel ("dense", "dw"): the sums of every
+    numeric field of the site records, the bound's limiter and the shares of
+    the bound, warm and cold."""
+    classes, kernels = {}, {}
+    for r in recs:
+        for agg in (classes.setdefault(r["class"], {}), kernels.setdefault(r["kind"], {})):
+            for key, v in r.items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool) and key not in (
+                        "cout", "k", "stride", "ldx"):
+                    agg[key] = agg.get(key, 0) + v
+    for agg in list(classes.values()) + list(kernels.values()):
+        t_b, t_f = agg["bytes"] / 3.35e12, agg["ops"] / 1979e12
+        agg["bound_by"] = "bytes" if t_b >= t_f else "operations"
+        agg["bound_over_ms"] = agg["bound_ms"] / agg["ms"]
+        agg["bound_over_cold_ms"] = agg["bound_ms"] / agg["cold_ms"]
+    return classes, kernels
+
+
+def time_int8_model(model, x, plain=True, phases=False):
+    """time_int8_site at every int8 conv site of one forward of x ->
+    (site records, per class, per kernel)."""
+    recs = []
+    for name, (p, xi, act) in int8_inputs(model, x).items():
+        recs.append({"site": name, "kind": p.kind, "class": int8_site_class(p),
+                     **time_int8_site(p, xi, act, plain, phases)})
+    return (recs, *sum_int8_sites(recs))
+
+
+def int8_tiles(p, x):
+    """The tiles the sweep tries at one site: DW, square sides and whole
+    images; dense k > 1, every tile width conv_tile weighs."""
+    b, c, h, w = x.shape
+    if p.kind == "dw":
+        return sorted({(min(t, h), min(t, w)) for t in (8, 12, 16, 20, 24, 32, 40)} | {(h, w)})
+    ho, wo = (h + 2 * p.pad - p.k) // p.stride + 1, (w + 2 * p.pad - p.k) // p.stride + 1
+    return [(QC.BM // tw, tw) for tw in sorted({64, 32, 16, 8, 4} | ({wo} if wo < QC.BM else
+                                                                     set()))]
+
+
+def int8(dev):
+    from mafyolo_tpu_torch.core import quant as Q
+    name = "maf-yolo-n"
+    folded = sample.random_deploy(name, dev)[0]
+    calib = [sample.images(300 + i, BATCH).to(dev) for i in range(2)]
+    quant = Q.ptq_calibrate(name, 80, folded, calib, max_batches=2, device=dev)
+    p8 = Q.int8_predict_fn(name, 80, folded, quant, device=dev)
+    x = Q.normalize(sample.images(400, BATCH).to(dev), torch.bfloat16, dev)
+    recs, classes, kernels = time_int8_model(p8.model, x, plain=False, phases=True)
+    for r in recs:
+        print(json.dumps(r), flush=True)
+    for key, agg in classes.items():
+        print(json.dumps({"class": key, **agg}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    # the tile sweep: each distinct site with a tile choice, on cold inputs
+    done, summed = set(), {}
+    for name, (p, xi, act) in int8_inputs(p8.model, x).items():
+        key = (p.kind, p.k, p.stride, tuple(xi.shape[1:]), p.cout)
+        if key in done or (p.kind == "dense" and p.k == 1):
+            continue
+        done.add(key)
+        sets = sample.cold_sets((xi,))
+        picked = (QC.dw_tile(p.k, *xi.shape[2:], p.cin, 2) if p.kind == "dw" else
+                  QC.conv_tile(p.k, p.stride, p.pad, *_out_hw(p, xi), QC.pad16(p.cin), 2))
+        want = QC.ACTS[act](QC.int8_conv_plain(xi, p))
+        for tile in int8_tiles(p, xi):
+            try:
+                if p.kind == "dw":
+                    def run(xx, tile=tile):
+                        return QC.dw_launch(xx, p, tile)
+                else:
+                    def run(xx, tile=tile):
+                        return QC.conv_launch(xx, p, act, tile)
+                ok = torch.equal(QC.ACTS[None](run(xi)), want)
+            except (RuntimeError, ValueError) as err:
+                print(json.dumps({"site": name, "tile": tile, "error": str(err)}), flush=True)
+                continue
+            ms = cuda_ms(sample.in_turn(run, sets), max(10, len(sets)))
+            print(json.dumps({"site": name, "tile": list(tile), "picked": tile == picked,
+                              "equal_to_plain": ok, "cold_ms": ms}), flush=True)
+            cls = int8_site_class(p)
+            summed.setdefault(cls, {}).setdefault(str(list(tile)) if p.kind == "dense" else
+                                                  tile[0] if tile != tuple(xi.shape[2:])
+                                                  else "whole", []).append(ms)
+        del sets
+    print(json.dumps({"sweep_cold_ms_by_class": {
+        c: {t: [sum(v), len(v)] for t, v in d.items()} for c, d in summed.items()}}), flush=True)
+
+
+# The compile-time knobs of the int8 kernels the caps sweep rebuilds them
+# with: the dense kernel's (blocks an SM the register budget is cut for, K
+# steps of B lookahead), the depthwise kernel's blocks an SM at k 3 and 5.
+# The first of each is the kernel's default.
+INT8_CAPS = {"int8_conv": [(8, 1), (4, 2), (6, 2), (6, 1)], "int8_dw": [(3,), (1,), (2,)]}
+_CAP_MACROS = {"int8_conv": ("INT8_CONV_MIN_BLOCKS", "INT8_CONV_AHEAD"),
+               "int8_dw": ("INT8_DW_MIN_BLOCKS",)}
+
+
+def int8_caps(dev):
+    """Each int8 kernel rebuilt with each of its INT8_CAPS and timed at every
+    site of its kind (warm and cold, summed per class), checked against the
+    plain version first; ptxas's registers and spills beside."""
+    from mafyolo_tpu_torch.core import quant as Q
+    name = "maf-yolo-n"
+    folded = sample.random_deploy(name, dev)[0]
+    calib = [sample.images(300 + i, BATCH).to(dev) for i in range(2)]
+    quant = Q.ptq_calibrate(name, 80, folded, calib, max_batches=2, device=dev)
+    p8 = Q.int8_predict_fn(name, 80, folded, quant, device=dev)
+    seen = int8_inputs(p8.model, Q.normalize(sample.images(400, BATCH).to(dev),
+                                             torch.bfloat16, dev))
+    default = dict(_build.EXTRA_FLAGS)
+    for lib, caps in INT8_CAPS.items():
+        kind = "dense" if lib == "int8_conv" else "dw"
+        for cap in caps:
+            _build.EXTRA_FLAGS[lib] = [f"-D{m}={v}" for m, v in zip(_CAP_MACROS[lib], cap)]
+            _build._LOADED.pop(lib, None)
+            _build.build(lib)
+            log = _build.BUILD_LOG.get(lib, (0, ""))[1].splitlines()
+            recs = [{"site": n, "kind": p.kind, "class": int8_site_class(p),
+                     **time_int8_site(p, xi, act, plain=False)}
+                    for n, (p, xi, act) in seen.items() if p.kind == kind]
+            classes, kernels = sum_int8_sites(recs)
+            print(json.dumps({
+                "kernel": lib, "cap": dict(zip(_CAP_MACROS[lib], cap)),
+                "equal_to_plain": all(r["equal_to_plain"] for r in recs),
+                "registers": sorted({int(ln.split("Used ")[1].split()[0]) for ln in log
+                                     if "registers" in ln}),
+                "spill_bytes_max": max([int(ln.split(",")[1].split()[0]) for ln in log
+                                        if "spill stores" in ln] + [0]),
+                "ms": kernels[kind]["ms"], "cold_ms": kernels[kind]["cold_ms"],
+                "classes": {c: {"ms": v["ms"], "cold_ms": v["cold_ms"]}
+                            for c, v in classes.items()}}), flush=True)
+    _build.EXTRA_FLAGS.update(default)
+    for lib in INT8_CAPS:
+        _build._LOADED.pop(lib, None)
+
+
+def _out_hw(p, x):
+    h, w = x.shape[2:]
+    return (h + 2 * p.pad - p.k) // p.stride + 1, (w + 2 * p.pad - p.k) // p.stride + 1
+
+
+COMMANDS = {"frontend": frontend, "neck": neck, "dw_grad": dw_grad, "nms": nms, "stem": stem,
+            "int8": int8, "int8_caps": int8_caps}
 
 if __name__ == "__main__":
     args = sys.argv[1:]

@@ -197,11 +197,32 @@ def cold_sets(tensors, l2_bytes=L2_BYTES):
     """[tensors, copies of them, ...]: enough sets that a pass over all of
     them moves more than twice the L2 cache, so a call that takes the sets in
     turn finds none of its input there (one set when the tensors alone are
-    that large)."""
+    that large). A copy keeps its tensor's strides: a channel slice stays a
+    slice, its pixel pitch part of what is timed."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     n = max(1, -(-2 * l2_bytes // nbytes))
-    return [tuple(tensors)] + [tuple(t.clone(memory_format=torch.preserve_format)
+    return [tuple(tensors)] + [tuple(torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                                         device=t.device).copy_(t)
                                      for t in tensors) for _ in range(n - 1)]
+
+
+def int8_silu_every_bf16(dev):
+    """The int8 conv's fused SiLU epilogue on every finite bf16 value (a 1x1
+    conv whose scale is 0 and whose bias holds the values) against torch's
+    bf16 SiLU: (values, how many differ)."""
+    import dataclasses
+
+    from mafyolo_tpu_torch.ops import quant_conv as QC
+    vals = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    vals = vals.float()[torch.isfinite(vals.float())]
+    w = torch.randn((vals.numel(), 16, 1, 1), generator=torch.Generator().manual_seed(13))
+    p = QC.pack(w, torch.zeros(vals.numel()), torch.tensor(1.0), 1, 0, 1).to(dev)
+    p = dataclasses.replace(p, scale=torch.zeros_like(p.scale), bias=vals.to(dev))
+    x = torch.ones((1, 16, 1, 1), device=dev, dtype=torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    got = QC.int8_conv(x, p, "silu").flatten()
+    want = torch.nn.functional.silu(vals.to(dev, torch.bfloat16))
+    return vals.numel(), int((got != want).sum())
 
 
 def in_turn(fn, sets):

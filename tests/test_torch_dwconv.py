@@ -180,8 +180,9 @@ def test_dw_grad_tiles_sum_to_the_plain_version(k, pad, dil):
 
 def test_timing_inputs_take_turns():
     """The timing helpers of utils/sample.py: enough copies of the inputs
-    that a pass over them exceeds twice the cache, taken in turn by the timed
-    call, and aten's weight gradient beside the plain version."""
+    that a pass over them exceeds twice the cache, with the inputs' strides,
+    taken in turn by the timed call, and aten's weight gradient beside the
+    plain version."""
     from mafyolo_tpu_torch.utils import sample
     x, g = sample.dw_site_inputs((8, 6, 6, 3, 1, 1), 2, torch.device("cpu"))
     nbytes = 2 * x.numel() * 2
@@ -190,6 +191,9 @@ def test_timing_inputs_take_turns():
     assert all(torch.equal(a, x) and torch.equal(b, g) and a.data_ptr() != x.data_ptr()
                and a.is_contiguous(memory_format=torch.channels_last) for a, b in sets[1:])
     assert len(sample.cold_sets((x, g), l2_bytes=nbytes // 4)) == 1
+    part = x[:, 1:3]                    # a channel slice keeps its pixel pitch
+    assert all(a.stride() == part.stride() and torch.equal(a, part)
+               for (a,) in sample.cold_sets((part,), l2_bytes=4 * part.numel() * 2)[1:])
     seen = []
     run = sample.in_turn(lambda a, b: seen.append(a.data_ptr()), sets)
     for _ in range(6):

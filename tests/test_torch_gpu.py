@@ -391,7 +391,12 @@ def _int8_pack(cin, cout, k, stride, groups, seed, device):
     ((2, 33, 63, 47), 72, 3, 2),       # odd H and W at stride 2
     ((2, 64, 40, 40), 128, 1, 1),      # aligned 1x1: the 16-byte load path
     ((2, 72, 126, 94), 1, 1, 1),
-    ((2, 1, 20, 20), 33, 1, 1)])
+    ((2, 1, 20, 20), 33, 1, 1),
+    ((1, 3, 67, 45), 24, 3, 2),        # Cin 3 at odd H and W: loads along image rows
+    ((2, 24, 41, 39), 48, 3, 2),       # 48-byte pixels, 3 x 19 tiles
+    ((2, 72, 20, 20), 24, 1, 1),       # C 72: 80-byte taps
+    ((2, 192, 40, 40), 96, 3, 2),      # 20 x 3 tiles over a 20 px output
+    ((2, 128, 80, 80), 128, 3, 2)])    # 8 x 8 tiles
 def test_int8_conv_kernel_matches_plain(cuda_device, dtype, shape, cout, k, stride):
     """Bit-equal to the plain version (exact f64 integer conv, the same
     quantization and epilogue), and a second launch bit-identical."""
@@ -413,7 +418,8 @@ def test_int8_conv_kernel_matches_plain(cuda_device, dtype, shape, cout, k, stri
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k", [3, 5, 7, 9])
-@pytest.mark.parametrize("shape", [(2, 72, 37, 23), (1, 33, 40, 40), (2, 1, 5, 3)])
+@pytest.mark.parametrize("shape", [(2, 72, 37, 23), (1, 33, 40, 40), (2, 1, 5, 3),
+                                   (2, 288, 20, 20), (1, 144, 40, 40), (1, 72, 41, 39)])
 def test_int8_dw_kernel_matches_plain(cuda_device, dtype, k, shape):
     from mafyolo_tpu_torch.ops import quant_conv as Q
     p = _int8_pack(shape[1], shape[1], k, 1, shape[1], k, cuda_device)
@@ -444,3 +450,31 @@ def test_int8_kernels_read_channel_slices(cuda_device):
             got = Q.int8_conv(xs, p)
             want = Q.int8_conv_plain(xs.contiguous(memory_format=torch.channels_last), p)
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["relu", "silu"])
+@pytest.mark.parametrize("shape,cout,k,stride", [((2, 64, 40, 40), 128, 1, 1),
+                                                 ((2, 24, 41, 39), 48, 3, 2),
+                                                 ((1, 3, 67, 45), 24, 3, 2)])
+def test_int8_conv_fused_activation_matches_torch(cuda_device, dtype, act, shape, cout, k,
+                                                  stride):
+    """The activation fused in the epilogue equals torch's activation of the
+    plain version's output bit for bit, and a second launch is identical."""
+    from mafyolo_tpu_torch.ops import quant_conv as Q
+    p = _int8_pack(shape[1], cout, k, stride, 1, 9, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 1.5).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    got, again = Q.int8_conv(x, p, act), Q.int8_conv(x, p, act)
+    want = Q.ACTS[act](Q.int8_conv_plain(x, p))
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+    assert torch.equal(got, again)
+
+
+def test_int8_fused_silu_every_bf16_value(cuda_device):
+    """Every finite bf16 value through the fused SiLU epilogue equals torch's
+    bf16 SiLU of it (utils/sample.py:int8_silu_every_bf16)."""
+    from mafyolo_tpu_torch.utils.sample import int8_silu_every_bf16
+    n, differ = int8_silu_every_bf16(cuda_device)
+    assert n == 65280 and differ == 0, differ

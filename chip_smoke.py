@@ -166,6 +166,14 @@ EVAL_BF16_AP_FLOOR = {"AP50": 0.352, "AP": 0.282}
 STEPS_PER_EPOCH = 3665     # COCO train2017 (117266 images) at bs 32
 TRAIN_STEPS = 4            # per epoch: an ATSS epoch, then a TAL epoch
 TRAIN_IMAGES = 72          # the trainer phase's set: batches of 32, 32 and 8
+# sm_train: (graph, batch) at IMG in bf16, and each one's (do_apply,
+# use_atss) steps: accumulate 2, ATSS then TAL for S, two steps for M
+SM_TRAIN = (("maf-yolo-s", 16, ((False, True), (True, True), (False, False), (True, False))),
+            ("maf-yolo-m", 8, ((False, True), (True, True))))
+# ddp: two ranks on the one card, each DDP_BATCH images of DDP_IMG, N in
+# f32; an apply step, then an accumulate-only step and an apply step
+DDP_IMG, DDP_BATCH, DDP_WORLD = 320, 4, 2
+DDP_TIMED_STEPS = 3
 # device_augment on the card against the CPU on the same draw: the f32
 # bilinear taps differ by rounding only (one 8-bit level is 1/255)
 DEVICE_AUG_TOL = 1.0 / 255
@@ -256,23 +264,10 @@ def tensor_core_check(paths):
 
 
 def train_batch(seed, b, img, device, max_boxes=120):
-    """uint8 BGR images [b,img,img,3] and padded targets [b,max_boxes,5]
-    (1-30 boxes per image: cls, cx, cy, w, h normalized; pad rows cls -1),
-    made on the device from a seed."""
-    import torch
-    gen = torch.Generator(device=device).manual_seed(seed)
-    imgs = torch.randint(0, 256, (b, img, img, 3), generator=gen, device=device,
-                         dtype=torch.uint8)
-    u = torch.rand((b, max_boxes, 5), generator=gen, device=device)
-    n = torch.randint(1, 31, (b, 1), generator=gen, device=device)
-    real = torch.arange(max_boxes, device=device)[None, :] < n
-    wh = 0.03 + 0.5 * u[..., 3:5]
-    xy = wh / 2 + u[..., 1:3] * (1 - wh)
-    cls = (u[..., 0] * NC).floor().clamp(max=NC - 1)
-    t = torch.cat([cls[..., None], xy, wh], -1)
-    t = torch.where(real[..., None], t, torch.zeros_like(t))
-    t[..., 0] = torch.where(real, t[..., 0], -1.0)
-    return imgs, t
+    """utils/sample.py:train_batch: uint8 images and padded targets made on
+    the device from a seed."""
+    from mafyolo_tpu_torch.utils.sample import train_batch as make
+    return make(seed, b, img, device, max_boxes, NC)
 
 
 def dw_grad_phase(dev):
@@ -284,7 +279,6 @@ def dw_grad_phase(dev):
     import torch
 
     from mafyolo_tpu_torch.models import build_model
-    from mafyolo_tpu_torch.ops import _build
     from mafyolo_tpu_torch.ops import dw_grad as DG
     from mafyolo_tpu_torch.utils.sample import dw_sites
     cl = torch.channels_last
@@ -294,6 +288,29 @@ def dw_grad_phase(dev):
         (64, 20, 20, 9, 8, 2), (48, 37, 23, 5, 2, 1), (1, 37, 23, 5, 2, 1), (33, 37, 23, 3, 1, 1),
         (72, 37, 23, 9, 4, 1), (72, 1, 1, 3, 1, 1), (33, 1, 1, 1, 0, 1), (72, 37, 23, 7, 3, 1),
         (40, 26, 31, 3, 0, 1), (40, 26, 31, 5, 4, 1), (40, 26, 31, 1, 2, 1), (40, 26, 31, 9, 2, 1)]
+    dk_err = dw_grad_gate(dev, cases)
+    # k = 9 at dilation 25 stages at least 201 x 210 x 32 f32 values: over
+    # the block's shared memory, and the wrapper must raise, not fall back
+    x = torch.zeros((1, 8, 200, 200), device=dev).contiguous(memory_format=cl)
+    try:
+        DG.dw_grad(x, x, 9, 100, 25)
+    except RuntimeError as e:
+        emit(phase="dw_grad_too_large", raised=str(e)[:120])
+    else:
+        fail("dw_grad: a launch over the block's shared memory did not raise")
+    emit(phase="dw_grad_sites", sites=len(sites), distinct=len(set(sites)), cases=len(cases))
+    return dk_err
+
+
+def dw_grad_gate(dev, cases, phase="dw_grad_check", **tags):
+    """The dw_grad kernel against its plain version at each (C, H, W, k, pad,
+    dilation) of cases at B=2, f32 and bf16, twice for the bits; -> the
+    largest error."""
+    import torch
+
+    from mafyolo_tpu_torch.ops import _build
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    cl = torch.channels_last
     dk_err = 0.0
     for c, h, w, k, pad, dil in cases:
         ho, wo = h + 2 * pad - dil * (k - 1), w + 2 * pad - dil * (k - 1)
@@ -316,22 +333,12 @@ def dw_grad_phase(dev):
             check(torch.equal(got, again), f"dw_grad not deterministic C{c} H{h} k{k}")
             dk_err = max(dk_err, err)
         cut = DG.plan(2, c, ho, wo, k, pad, dil, 2, _build.sm_count(dev.index))
-        emit(phase="dw_grad_check", c=c, h=h, w=w, k=k, pad=pad, dilation=dil, batch=2,
+        emit(phase=phase, **tags, c=c, h=h, w=w, k=k, pad=pad, dilation=dil, batch=2,
              cut_bf16=cut._asdict(),
              max_abs_err_f32=errs["float32"][0], bound_f32=errs["float32"][1],
              max_abs_err_bf16=errs["bfloat16"][0], bound_bf16=errs["bfloat16"][1],
              tolerance="1e-3 * max|plain| for both; bf16 inputs are the same "
                        "numbers for both versions, each accumulates in f32")
-    # k = 9 at dilation 25 stages at least 201 x 210 x 32 f32 values: over
-    # the block's shared memory, and the wrapper must raise, not fall back
-    x = torch.zeros((1, 8, 200, 200), device=dev).contiguous(memory_format=cl)
-    try:
-        DG.dw_grad(x, x, 9, 100, 25)
-    except RuntimeError as e:
-        emit(phase="dw_grad_too_large", raised=str(e)[:120])
-    else:
-        fail("dw_grad: a launch over the block's shared memory did not raise")
-    emit(phase="dw_grad_sites", sites=len(sites), distinct=len(set(sites)), cases=len(cases))
     return dk_err
 
 
@@ -890,6 +897,12 @@ def main():
     trainer_phase(dev, card)
     torch.set_grad_enabled(False)
     quant_kernels = quant_phase(dev, folded, card)
+    torch.set_grad_enabled(True)
+    sm = sm_train_phase(dev)
+    dk_err = max(dk_err, sm["dk_err"])
+    bridge_phase(dev)
+    ddp_phase(dev, card)
+    torch.set_grad_enabled(False)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -1664,21 +1677,13 @@ def train_phases(dev):
     from types import SimpleNamespace
 
     from mafyolo_tpu_torch.core.engine import Schedule, Trainer
-    from mafyolo_tpu_torch.core.evaler import Evaler
-    from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
-    from mafyolo_tpu_torch.models import build_model
     from torch.profiler import ProfilerActivity, profile
     from mafyolo_tpu_torch.ops import dw_grad as DG
-    from mafyolo_tpu_torch.ops import frontend as FE
-    from mafyolo_tpu_torch.ops import greedy_nms as G
-    from mafyolo_tpu_torch.utils.bridge import (random_train_variables,
-                                                state_dict_to_train_variables,
-                                                train_variables_to_state_dict)
+    from mafyolo_tpu_torch.utils.bridge import state_dict_to_train_variables
     from mafyolo_tpu_torch.utils.config import Config
     from mafyolo_tpu_torch.utils.sample import (ArrayDataset, cold_sets, dw_library,
                                                 dw_site_inputs, dw_sites, in_turn, train_set)
     from mafyolo_tpu_torch.utils.timing import cuda_ms, graph_ms
-    cl = torch.channels_last
 
     # ---- 15. train: N bs32@640 bf16 through the Trainer's step loop, on the
     # step schedule of a COCO epoch (its loader is not run here: phase 20)
@@ -1742,90 +1747,11 @@ def train_phases(dev):
           f"dw_grad launches {launches} != {len(sites)} DW sites x {len(record)} steps")
 
     # ---- 16. train_check: one f32 step, card (kernel) vs CPU (plain), bs2@160
-    variables = random_train_variables(tr.state.model.specs, seed=3)
-    imgs, targets = train_batch(7, 2, 160, dev)
-    grads, comps, bn = {}, {}, {}
-    for key, where in (("card", dev), ("cpu", "cpu")):
-        m = build_model("maf-yolo-n", nc=NC)
-        m.load_state_dict(train_variables_to_state_dict(variables))
-        m = m.to(where).to(memory_format=cl)
-        st = init_train_state(m, weight_decay=5e-4)
-        before = DG.dw_grad.launches
-        met = make_train_step(num_classes=NC, img_size=160)(
-            st, imgs.to(where), targets.to(where), 0.01, 0.01, 0.01, 0.9, False, False)
-        if key == "card":
-            check(DG.dw_grad.launches - before == len(sites), "train_check: dw_grad not launched")
-        comps[key] = {k: float(v) for k, v in met.items()}
-        grads[key] = {n: p.grad for n, p in m.named_parameters()}
-        bn[key] = {n: b for n, b in m.named_buffers()}
-    g_err = _leaf_errors(grads["card"], grads["cpu"])
-    s_err = _leaf_errors(bn["card"], bn["cpu"])
-    l_err = max(abs(comps["card"][k] - v) / max(abs(v), 1e-6) for k, v in comps["cpu"].items())
-    worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
-    emit(phase="train_check", batch=2, img=160, dtype="f32", loss_cpu=comps["cpu"],
-         loss_card=comps["card"], loss_rel_err=l_err, grad_leaves=len(g_err),
-         grad_max_rel_err=max(g_err.values()), grad_worst=worst,
-         bn_stats_max_rel_err=max(s_err.values()),
-         tolerance="loss components rel 1e-3; each gradient and BN buffer: "
-                   "max|card - cpu| <= 1e-2 * max(max|cpu leaf|, 1e-2 * max over leaves)")
-    check(l_err <= 1e-3, f"train_check loss components differ: {comps}")
-    check(max(g_err.values()) <= 1e-2, f"train_check gradients differ: {worst}")
-    check(max(s_err.values()) <= 1e-2, "train_check BN running stats differ")
-    del grads, bn
+    step_card_vs_cpu(dev, "maf-yolo-n", len(sites))
 
     # ---- 17. train_to_serve: fold the EMA, predict on the card
-    ema_vars = state_dict_to_train_variables(tr.state.ema.state_dict())
-    ev = Evaler(half=True, device=dev)
-    ev.init_model("maf-yolo-n", ema_vars, nc=NC, folded=False)
-    FE.frontend_forward.launches = G.greedy_nms.launches = 0
-    out = ev.predict(batches[0][0])
-    torch.cuda.synchronize()
-    serve_launches = {"frontend": FE.frontend_forward.launches, "greedy_nms": G.greedy_nms.launches}
-    # After 4 optimizer steps the EMA's preds are still near their zero
-    # init, so every score sits near the prior (0.01) and few or no boxes
-    # clear conf 0.03. So the fold is checked on raw outputs: the folded
-    # model in f32 (front-end kernel included) against the train form in
-    # eval mode on the same EMA weights, 4 images, at every head's stem
-    # (feat), cls_proj and reg_proj output and its cls and reg.
-    ev32 = Evaler(half=False, device=dev)
-    ev32.init_model("maf-yolo-n", ema_vars, nc=NC, folded=False)
-    ref = build_model("maf-yolo-n", nc=NC)
-    ref.load_state_dict(train_variables_to_state_dict(ema_vars))
-    ref = ref.to(dev).to(memory_format=cl).eval()
-
-    def inner(model, run):
-        got, hooks = {}, []
-        for name, m in model.named_modules():
-            if name.endswith(("cls_proj", "reg_proj")):
-                hooks.append(m.register_forward_hook(
-                    lambda mod, a, o, name=name: got.__setitem__(name, o)))
-        with torch.no_grad():
-            for lvl, outs in enumerate(run()):
-                got.update({f"level{lvl}.{t}": o for t, o in zip(("feat", "cls", "reg"), outs)})
-        for h in hooks:
-            h.remove()
-        return got
-
-    four = batches[0][0][:4]
-    got = inner(ev32.model, lambda: ev32.forward(four))
-    want = inner(ref, lambda: ref(four.flip(-1).float() / 255.0))
-    check(got.keys() == want.keys() and len(want) == 15, "train_to_serve: outputs differ in kind")
-    fold_err = {k: (got[k].float() - w).abs().max().item() / w.abs().max().item()
-                for k, w in want.items()}
-    emit(phase="train_to_serve", launches=serve_launches,
-         dets_per_image_mean=float(out["valid"].sum(1).float().mean().item()),
-         max_score=max(o[1].float().max().item() for o in ev.forward(four)),
-         fold_outputs=len(fold_err), fold_max_rel_err=max(fold_err.values()),
-         fold_worst=sorted(fold_err.items(), key=lambda kv: -kv[1])[:3],
-         tolerance="folded f32 vs train form eval f32: max|err| <= 1e-3 * max|train form| "
-                   "for each output")
-    check(serve_launches["frontend"] == 1 and serve_launches["greedy_nms"] >= 1,
-          "train_to_serve: front-end or NMS kernel not launched")
-    check(out["boxes"].shape == (BATCH, 300, 4) and bool(torch.isfinite(out["boxes"]).all())
-          and bool(torch.isfinite(out["scores"]).all()), "train_to_serve: bad output")
-    check(max(fold_err.values()) <= 1e-3, f"train_to_serve: folded model differs from the "
-                                          f"train form: {fold_err}")
-    del ev, ev32, ref, got, want
+    serve_ema(dev, "maf-yolo-n", state_dict_to_train_variables(tr.state.ema.state_dict()),
+              batches[0][0])
 
     # ---- 18. timing_train: CUDA events per stage over steady steps
     stages = ("forward", "loss", "backward", "optimizer")
@@ -1947,6 +1873,114 @@ def train_phases(dev):
     return {"launches": launches, "dk_ms": dk_ms, "dk_plain_ms": dk_plain_ms,
             "dk_err": b32_err, "dk_library_ms": dk_library_ms,
             "dk_bound": bound(dk_bytes, dk_flops, "bf16")}
+
+
+def step_card_vs_cpu(dev, graph, n_sites, phase="train_check"):
+    """One f32 step of `graph` at bs2@160 on the card (the dw_grad kernel)
+    against the CPU (its plain version), from the same random train weights:
+    loss components within 1e-3, each gradient and BN buffer within 1e-2 of
+    its scale; the card's step launches dw_grad once a DW site."""
+    import torch
+
+    from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.utils.bridge import (random_train_variables,
+                                                train_variables_to_state_dict)
+    cl = torch.channels_last
+    variables = random_train_variables(build_model(graph, nc=NC).specs, seed=3)
+    imgs, targets = train_batch(7, 2, 160, dev)
+    grads, comps, bn = {}, {}, {}
+    for key, where in (("card", dev), ("cpu", "cpu")):
+        m = build_model(graph, nc=NC)
+        m.load_state_dict(train_variables_to_state_dict(variables))
+        m = m.to(where).to(memory_format=cl)
+        st = init_train_state(m, weight_decay=5e-4)
+        before = DG.dw_grad.launches
+        met = make_train_step(num_classes=NC, img_size=160)(
+            st, imgs.to(where), targets.to(where), 0.01, 0.01, 0.01, 0.9, False, False)
+        if key == "card":
+            check(DG.dw_grad.launches - before == n_sites, f"{phase}: dw_grad not launched")
+        comps[key] = {k: float(v) for k, v in met.items()}
+        grads[key] = {n: p.grad for n, p in m.named_parameters()}
+        bn[key] = {n: b for n, b in m.named_buffers()}
+    g_err = _leaf_errors(grads["card"], grads["cpu"])
+    s_err = _leaf_errors(bn["card"], bn["cpu"])
+    l_err = max(abs(comps["card"][k] - v) / max(abs(v), 1e-6) for k, v in comps["cpu"].items())
+    worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
+    emit(phase=phase, model=graph, batch=2, img=160, dtype="f32", loss_cpu=comps["cpu"],
+         loss_card=comps["card"], loss_rel_err=l_err, grad_leaves=len(g_err),
+         grad_max_rel_err=max(g_err.values()), grad_worst=worst,
+         bn_stats_max_rel_err=max(s_err.values()),
+         tolerance="loss components rel 1e-3; each gradient and BN buffer: "
+                   "max|card - cpu| <= 1e-2 * max(max|cpu leaf|, 1e-2 * max over leaves)")
+    check(l_err <= 1e-3, f"{phase} loss components differ: {comps}")
+    check(max(g_err.values()) <= 1e-2, f"{phase} gradients differ: {worst}")
+    check(max(s_err.values()) <= 1e-2, f"{phase} BN running stats differ")
+
+
+def serve_ema(dev, graph, ema_vars, imgs, phase="train_to_serve"):
+    """The EMA folded and served through Evaler.predict on imgs (bs32@640),
+    with the front-end and NMS launches read around it; the fold checked on
+    raw outputs: the folded model in f32 (front-end kernel included) against
+    the train form in eval mode on the same EMA weights, 4 images, at every
+    head's stem (feat), cls_proj and reg_proj output and its cls and reg.
+    After a few optimizer steps the EMA's preds are still near their zero
+    init, so every score sits near the prior (0.01) and few or no boxes
+    clear conf 0.03: the boxes are checked for shape and finiteness only."""
+    import torch
+
+    from mafyolo_tpu_torch.core.evaler import Evaler
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.utils.bridge import train_variables_to_state_dict
+    ev = Evaler(half=True, device=dev)
+    ev.init_model(graph, ema_vars, nc=NC, folded=False)
+    FE.frontend_forward.launches = G.greedy_nms.launches = 0
+    out = ev.predict(imgs)
+    torch.cuda.synchronize()
+    serve_launches = {"frontend": FE.frontend_forward.launches, "greedy_nms": G.greedy_nms.launches}
+    ev32 = Evaler(half=False, device=dev)
+    ev32.init_model(graph, ema_vars, nc=NC, folded=False)
+    ref = build_model(graph, nc=NC)
+    ref.load_state_dict(train_variables_to_state_dict(ema_vars))
+    ref = ref.to(dev).to(memory_format=torch.channels_last).eval()
+
+    def inner(model, run):
+        got, hooks = {}, []
+        for name, m in model.named_modules():
+            if name.endswith(("cls_proj", "reg_proj")):
+                hooks.append(m.register_forward_hook(
+                    lambda mod, a, o, name=name: got.__setitem__(name, o)))
+        with torch.no_grad():
+            for lvl, outs in enumerate(run()):
+                got.update({f"level{lvl}.{t}": o for t, o in zip(("feat", "cls", "reg"), outs)})
+        for h in hooks:
+            h.remove()
+        return got
+
+    four = imgs[:4]
+    got = inner(ev32.model, lambda: ev32.forward(four))
+    want = inner(ref, lambda: ref(four.flip(-1).float() / 255.0))
+    check(got.keys() == want.keys() and len(want) == 15, f"{phase}: outputs differ in kind")
+    fold_err = {k: (got[k].float() - w).abs().max().item() / w.abs().max().item()
+                for k, w in want.items()}
+    emit(phase=phase, model=graph, launches=serve_launches,
+         dets_per_image_mean=float(out["valid"].sum(1).float().mean().item()),
+         max_score=max(o[1].float().max().item() for o in ev.forward(four)),
+         fold_outputs=len(fold_err), fold_max_rel_err=max(fold_err.values()),
+         fold_worst=sorted(fold_err.items(), key=lambda kv: -kv[1])[:3],
+         tolerance="folded f32 vs train form eval f32: max|err| <= 1e-3 * max|train form| "
+                   "for each output")
+    check(serve_launches["frontend"] == 1 and serve_launches["greedy_nms"] >= 1,
+          f"{phase}: front-end or NMS kernel not launched")
+    check(out["boxes"].shape == (imgs.shape[0], 300, 4)
+          and bool(torch.isfinite(out["boxes"]).all())
+          and bool(torch.isfinite(out["scores"]).all()), f"{phase}: bad output")
+    check(max(fold_err.values()) <= 1e-3, f"{phase}: folded model differs from the "
+                                          f"train form: {fold_err}")
+    return serve_launches
 
 
 # The least share of detections (score > 0.1, match()'s criterion) that the
@@ -2328,6 +2362,313 @@ def quant_phase(dev, folded, card):
              "torch._int_mm on the quantized operands of the 1x1 sites only (54 of the "
              "66 launches); the 3x3 s2 sites' is timing_quant's classes['3x3s2']"),
             ("int8_dw", "dw", None, "no int8 depthwise conv in PyTorch"))]
+
+
+def sm_train_phase(dev):
+    """Phase 22: MAF-YOLO-S and -M trained on the card. The dw_grad kernel
+    against its plain version at every distinct DW site of S's and M's train
+    graphs at B=2 (dw_grad_gate); S at bs16@640 and M at bs8@640 in bf16
+    through make_train_step, the steps of SM_TRAIN (the dw_grad launches
+    read around them: one a DW site a step; every loss finite; updates the
+    apply steps), then the same steps again timed by CUDA events, with the
+    peak memory of the first run; one f32 S step at bs2@160 on the card
+    against the CPU (step_card_vs_cpu); S's EMA folded and served at
+    bs32@640 through Evaler.predict, the fold checked on raw outputs
+    (serve_ema). Timed too: dk a step by class of site (H, k) at each
+    model's batch, the kernel beside aten's weight gradient and the bound.
+    -> the dw_grad launches and the largest dk error."""
+    import numpy as np
+    import torch
+
+    from mafyolo_tpu_torch.core.engine import Schedule
+    from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.utils.bridge import state_dict_to_train_variables
+    from mafyolo_tpu_torch.utils.config import Config
+    from mafyolo_tpu_torch.utils.sample import (cold_sets, dw_library, dw_site_inputs,
+                                                dw_sites, images, in_turn)
+    from mafyolo_tpu_torch.utils.timing import cuda_ms
+    cl = torch.channels_last
+
+    sites = {}
+    for graph, _, _ in SM_TRAIN:
+        sites[graph] = dw_sites(build_model(graph, nc=NC).to(dev).to(memory_format=cl), IMG, dev)
+    cases = sorted(set().union(*map(set, sites.values())))
+    dk_err = dw_grad_gate(dev, cases, phase="sm_dw_grad_check")
+    emit(phase="sm_dw_grad_sites", cases=len(cases), max_abs_err=dk_err,
+         **{f"{g[-1]}_sites": len(v) for g, v in sites.items()},
+         **{f"{g[-1]}_distinct": len(set(v)) for g, v in sites.items()})
+
+    cfg = Config.fromfile(os.path.join(HERE, "configs", "maf_yolo_n.py"))
+    launches, ema = {}, None
+    for graph, bs, plan in SM_TRAIN:
+        sched = Schedule(cfg.solver, bs, 300, STEPS_PER_EPOCH)
+        lrs = sched.lrs(0, 2)
+        torch.manual_seed(0)
+        model = build_model(graph, nc=NC).to(dev).to(memory_format=cl)
+        state = init_train_state(model, weight_decay=sched.weight_decay, lr0=sched.lr0,
+                                 momentum=cfg.solver["momentum"])
+        step = make_train_step(num_classes=NC, img_size=IMG, dtype=torch.bfloat16)
+        batches = [train_batch(300 + i, bs, IMG, dev) for i in range(len(plan))]
+
+        def run():
+            return [step(state, im, tg, lrs["lr_bnw"], lrs["lr_weight"], lrs["lr_bias"],
+                         lrs["momentum"], do_apply, use_atss)
+                    for (do_apply, use_atss), (im, tg) in zip(plan, batches)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        DG.dw_grad.launches = 0
+        losses = [{k: float(v) for k, v in m.items()} for m in run()]
+        torch.cuda.synchronize()
+        launches[graph] = DG.dw_grad.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        run()
+        t1.record()
+        torch.cuda.synchronize()
+        step_ms = t0.elapsed_time(t1) / len(plan)
+        n_apply = sum(a for a, _ in plan)
+        emit(phase="sm_train", model=graph, dtype="bf16", batch=bs, img=IMG, steps=len(plan),
+             plan=[{"apply": a, "atss": u} for a, u in plan], dw_sites=len(sites[graph]),
+             dw_grad_launches=launches[graph], updates=state.updates, losses=losses,
+             peak_mem_gb=peak, step_ms_mean=step_ms, img_per_s=bs / (step_ms / 1e3),
+             note="step_ms: CUDA events over a second run of the same steps; peak memory "
+                  "of the first run")
+        check(all(np.isfinite(v) for lo in losses for v in lo.values()),
+              f"sm_train {graph}: non-finite loss {losses}")
+        check(state.updates == 2 * n_apply, f"sm_train {graph}: updates {state.updates}")
+        check(launches[graph] == len(sites[graph]) * len(plan),
+              f"sm_train {graph}: dw_grad launches {launches[graph]} != "
+              f"{len(sites[graph])} DW sites x {len(plan)} steps")
+        if graph == "maf-yolo-s":
+            ema = state_dict_to_train_variables(state.ema.state_dict())
+        del model, state, step, batches
+        torch.cuda.empty_cache()
+
+        # dk a step by class of site (H, k) at this batch: the kernel and
+        # aten's weight gradient on inputs taken in turn from enough copies
+        # that none is in L2, as timing_train times N's
+        per_class = {}
+        for site in sorted(set(sites[graph])):
+            c, h, _, k, pad, dil = site
+            n = sites[graph].count(site)
+            x, g = dw_site_inputs(site, bs, dev)
+            sets = cold_sets((x, g))
+            kernel_ms = cuda_ms(in_turn(lambda x, g: DG.dw_grad(x, g, k, pad, dil), sets), 20)
+            library_ms = cuda_ms(in_turn(dw_library(x, k, pad, dil), sets), 20)
+            cls = per_class.setdefault(f"h{h}k{k}", {"sites": 0, "kernel_ms": 0.0,
+                                                     "library_ms": 0.0, "bound_ms": 0.0})
+            cls["sites"] += n
+            cls["kernel_ms"] += n * kernel_ms
+            cls["library_ms"] += n * library_ms
+            cls["bound_ms"] += n * bound(2 * x.numel() * 2 + c * k * k * 4,
+                                         2 * k * k * x.numel(), "bf16")["bound_ms"]
+            del x, g, sets
+        emit(phase="sm_dk_per_class", model=graph, batch=bs, dtype="bf16",
+             dk_kernel_ms_per_step=sum(v["kernel_ms"] for v in per_class.values()),
+             dk_library_ms_per_step=sum(v["library_ms"] for v in per_class.values()),
+             dk_bound_ms_per_step=sum(v["bound_ms"] for v in per_class.values()),
+             per_class=per_class,
+             note="CUDA events around eager calls, inputs not in the L2 cache")
+
+    step_card_vs_cpu(dev, "maf-yolo-s", len(sites["maf-yolo-s"]), phase="sm_train_check")
+    serve_ema(dev, "maf-yolo-s", ema, images(400, BATCH, IMG, IMG).to(dev),
+              phase="sm_train_to_serve")
+    return {"launches": launches, "dk_err": dk_err}
+
+
+def bridge_phase(dev):
+    """Phase 23: reference `.pt` checkpoints (utils/torch_bridge.py). For N
+    and S: random train-form weights written in the reference's key layout
+    (utils/sample.py:reference_state_dict) with torch.save, read back by
+    load_checkpoint, and served at bs32@640 in bf16 through Evaler.predict;
+    gate: every output bit-equal to the predict of the same weights read
+    from a `.npck`, each predict launching the front-end kernel once and
+    the NMS kernel. Then a Trainer built with --pretrained set to N's `.pt`
+    (every parameter taken from it) takes one step (dw_grad once a DW
+    site, a finite loss)."""
+    import pickle
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from mafyolo_tpu_torch.core.engine import Trainer
+    from mafyolo_tpu_torch.core.evaler import Evaler
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.utils.bridge import (random_train_variables,
+                                                state_dict_to_train_variables)
+    from mafyolo_tpu_torch.utils.checkpoint import eval_variables, load_checkpoint
+    from mafyolo_tpu_torch.utils.config import Config
+    from mafyolo_tpu_torch.utils.sample import (ArrayDataset, dw_sites, images,
+                                                reference_state_dict, train_set)
+
+    tmp = tempfile.TemporaryDirectory()
+    imgs = images(500, BATCH, IMG, IMG).to(dev)
+    pts = {}
+    for graph in ("maf-yolo-n", "maf-yolo-s"):
+        specs = build_model(graph, nc=NC).specs
+        variables = random_train_variables(specs, seed=11)
+        sd = reference_state_dict(variables, specs)
+        pts[graph] = os.path.join(tmp.name, f"{graph}.pt")
+        torch.save({"model": sd}, pts[graph])
+        npck = os.path.join(tmp.name, f"{graph}.npck")
+        with open(npck, "wb") as f:
+            pickle.dump({"model": variables, "ema": None, "meta": {"graph": graph, "nc": NC}}, f)
+        outs, counts = {}, {}
+        for tag, path in (("pt", pts[graph]), ("npck", npck)):
+            ckpt = load_checkpoint(path)
+            check(ckpt["meta"]["graph"] == graph and ckpt["meta"]["nc"] == NC,
+                  f"bridge: {tag} read as {ckpt['meta']}")
+            ev = Evaler(half=True, device=dev)
+            ev.init_model(graph, eval_variables(ckpt), NC, folded=False)
+            FE.frontend_forward.launches = G.greedy_nms.launches = 0
+            outs[tag] = ev.predict(imgs)
+            torch.cuda.synchronize()
+            counts[tag] = {"frontend": FE.frontend_forward.launches,
+                           "greedy_nms": G.greedy_nms.launches}
+            del ev
+        equal = {k: torch.equal(outs["pt"][k], outs["npck"][k]) for k in outs["npck"]}
+        emit(phase="bridge", model=graph, reference_keys=len(sd), batch=BATCH, img=IMG,
+             dtype="bf16", launches=counts, bit_equal=equal,
+             dets_per_image_mean=float(outs["pt"]["valid"].sum(1).float().mean().item()))
+        check(all(equal.values()), f"bridge {graph}: .pt predict differs from .npck: {equal}")
+        check(all(c["frontend"] == 1 and c["greedy_nms"] >= 1 for c in counts.values()),
+              f"bridge {graph}: front-end or NMS kernel not launched: {counts}")
+
+    cfg = Config.fromfile(os.path.join(HERE, "configs", "maf_yolo_n.py"))
+    args = SimpleNamespace(img_size=IMG, batch_size=BATCH, epochs=1, workers=8, seed=0,
+                           save_dir=os.path.join(tmp.name, "run"), tensorboard=False,
+                           device_aug=True, stop_aug_last_n_epoch=0,
+                           pretrained=pts["maf-yolo-n"])
+    tr = Trainer(args, cfg, {"train": train_set(41, 8), "nc": NC}, device=dev,
+                 dataset_cls=ArrayDataset)
+    want = load_checkpoint(pts["maf-yolo-n"])["model"]["params"]
+    got = state_dict_to_train_variables(dict(tr.state.model.named_parameters()))["params"]
+    got = dict(_tree_items(got))
+    same = all(np.array_equal(got[k], w) for k, w in _tree_items(want))
+    n_sites = len(dw_sites(tr.state.model, IMG, dev))
+    DG.dw_grad.launches = 0
+    met = tr._train_steps(0, [train_batch(501, BATCH, IMG, dev)])[0]
+    torch.cuda.synchronize()
+    loss = {k: float(v) for k, v in met.items()}
+    emit(phase="bridge_pretrained", model="maf-yolo-n", params_from_pt=same,
+         dw_grad_launches=DG.dw_grad.launches, loss=loss)
+    check(same, "bridge: the Trainer's params are not the .pt's")
+    check(all(np.isfinite(v) for v in loss.values()), f"bridge: non-finite loss {loss}")
+    check(DG.dw_grad.launches == n_sites, f"bridge: dw_grad launches {DG.dw_grad.launches}")
+    tmp.cleanup()
+
+
+def ddp_phase(dev, card):
+    """Phase 24: data parallel (parallel/ddp.py). Two ranks, spawned, on the
+    one card with gloo over CUDA tensors (NCCL refuses two ranks on one
+    GPU), each DDP_BATCH images of the global batch's DDP_WORLD x DDP_BATCH
+    at DDP_IMG, N in f32 from its init (zero preds), tools/ddp_check.py's
+    run, against one process on the whole batch (itself spawned, as the
+    ranks are). Gates: the two ranks' states equal bit for bit after the
+    plan (apply with ATSS, accumulate-only, apply with TAL; cuDNN
+    deterministic, no augmentation); within
+    tests/test_multidev_equivalence.py's tolerances, elementwise: loss
+    components, params, EMA and BN running statistics (model and EMA) rtol
+    1e-5 / atol 1e-6, momentum rtol 1e-4 / atol 2e-5 (at 320 px the f32
+    step is well enough conditioned for them; tests/test_torch_ddp.py holds
+    them at 64 px on the CPU in f64, augmented too); dw_grad launched once
+    a DW site a step on each rank; one augmentation under the --device-aug
+    recipe (mosaic and dynamic mixup: each rank gathers the global batch
+    and warps its rows and their partners) equal on each rank, bit for bit,
+    to the one process's rows. The plan with that augmentation is reported
+    (aug_plan_err_over_tolerance), not gated: in f32 TAL's targets turn on
+    near-ties that rounding decides (tools/ddp_check.py). Then the train CLI
+    with --device-count 1 (its one rank in this process, NCCL, world size
+    1) trains an epoch of 2 steps at bs8@320 with --device-aug on 16 images
+    held in memory: its dw_grad launches and checkpoint. Step ms by CUDA
+    events for each, gloo's labelled as two ranks on one card: not a
+    scaling figure (tools/ddp_check.py reads that across cards)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.parallel import ddp
+    from mafyolo_tpu_torch.tools import ddp_check as DC
+    from mafyolo_tpu_torch.tools import train as train_cli
+    from mafyolo_tpu_torch.utils.bridge import state_dict_to_train_variables
+    from mafyolo_tpu_torch.utils.checkpoint import load_checkpoint
+    from mafyolo_tpu_torch.utils.sample import ArrayDataset, dw_sites, train_set
+
+    torch.manual_seed(0)
+    model = build_model("maf-yolo-n", nc=NC)
+    variables = state_dict_to_train_variables(model.state_dict())
+    n_sites = len(dw_sites(model.to(dev).to(memory_format=torch.channels_last), DDP_IMG, dev))
+    del model
+    imgs, targets = (t.cpu() for t in train_batch(600, DDP_WORLD * DDP_BATCH, DDP_IMG, dev))
+    t_spawn = time.perf_counter()
+    ranks = DC.spawn_runs(DDP_WORLD, "gloo", variables, imgs, targets, DDP_TIMED_STEPS)
+    spawn_s = time.perf_counter() - t_spawn
+    one = DC.spawn_runs(1, "gloo", variables, imgs, targets, DDP_TIMED_STEPS)[0]
+
+    same = all(np.array_equal(a, b) for tree in ("model", "ema", "mom")
+               for (_, a), (_, b) in zip(_tree_items(ranks[0][tree]), _tree_items(ranks[1][tree])))
+    errs, worst = DC.errors(ranks[0], one)
+    aug_same = DC.aug_equal(ranks, one)
+    aug_errs, _ = DC.errors(ranks[0]["aug_plan"], one["aug_plan"])
+    emit(phase="ddp", model="maf-yolo-n", dtype="f32", backend="gloo", ranks=DDP_WORLD,
+         rank_batch=DDP_BATCH, img=DDP_IMG, plan=[{"apply": a, "atss": u} for a, u in DC.PLAN],
+         device_aug=DC.AUG, ranks_bit_equal=same, aug_rows_bit_equal=aug_same,
+         err_over_tolerance=errs, worst_leaf=worst, aug_plan_err_over_tolerance=aug_errs,
+         losses={"rank0": [m["loss"] for m in ranks[0]["metrics"]],
+                 "one_process": [m["loss"] for m in one["metrics"]]},
+         dw_grad_launches=[r["launches"] for r in ranks], one_process_launches=one["launches"],
+         step_ms_two_ranks_gloo_one_card=[r["step_ms"] for r in ranks],
+         augment_ms_two_ranks_gloo_one_card=[r["augment_ms"] for r in ranks],
+         step_ms_one_process=one["step_ms"], augment_ms_one_process=one["augment_ms"],
+         spawn_and_run_s=spawn_s, card=card,
+         note="two gloo ranks share one card: their step ms is not a scaling figure; "
+              "err_over_tolerance: the largest error over its tolerance, gated at 1")
+    check(same, "ddp: the two ranks' states differ")
+    check(aug_same, "ddp: a rank's augmented rows differ from the one process's")
+    for key, v in errs.items():
+        check(v <= 1.0, f"ddp: two ranks against one process, {key} at {v} x its tolerance")
+    check(all(r["launches"] == n_sites * len(DC.PLAN) for r in ranks),
+          f"ddp: dw_grad launches {[r['launches'] for r in ranks]} != {n_sites} x "
+          f"{len(DC.PLAN)}")
+    check(all(r["updates"] == 2 for r in ranks), "ddp: updates")
+
+    # the train CLI's entry, one rank, NCCL
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "runs")
+    args = train_cli.get_args_parser().parse_args(
+        ["--conf", os.path.join(HERE, "configs", "maf_yolo_n.py"), "--img-size", str(DDP_IMG),
+         "--batch-size", "8", "--epochs", "1", "--workers", "4", "--output-dir", out,
+         "--device-count", "1", "--device-aug", "--stop-aug-last-n-epoch", "0",
+         "--device", dev.type])
+    DG.dw_grad.launches = 0
+    t_cli = time.perf_counter()
+    train_cli.main(args, data_dict={"train": train_set(42, 16, size=DDP_IMG), "nc": NC},
+                   dataset_cls=ArrayDataset)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t_cli
+    cli_launches = DG.dw_grad.launches
+    ckpt = load_checkpoint(os.path.join(out, "exp", "last_ckpt.npck"))
+    finite = all(np.isfinite(v).all() for _, v in _tree_items(ckpt["model"]))
+    emit(phase="ddp_cli", backend=ddp.default_backend(dev), world_size=1, batch=8, img=DDP_IMG, steps=2,
+         dw_grad_launches=cli_launches, wall_s=cli_s, checkpoint_epoch=ckpt["epoch"],
+         checkpoint_finite=finite, still_in_group=ddp.active(),
+         note="wall_s: the CLI call, Trainer build, 2 steps, save and strip included")
+    check(cli_launches == 2 * n_sites, f"ddp_cli: dw_grad launches {cli_launches}")
+    check(finite and ckpt["epoch"] == 0 and ckpt["ema"] is None,
+          "ddp_cli: bad checkpoint")
+    check(not ddp.active(), "ddp_cli: the process group outlived the run")
+    tmp.cleanup()
 
 
 if __name__ == "__main__":

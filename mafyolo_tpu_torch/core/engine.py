@@ -10,13 +10,18 @@ run_eval on its schedule, last/best/best_stop_aug checkpoints in the JAX
 package's file layout (utils/checkpoint.py), and at the end the stripped
 checkpoints. TensorBoard and wandb mirror the scalars where installed.
 
-It runs on the card unless the caller passes device="cpu". One process and
-one card: the JAX package's mesh and per-host loader sharding have their
-counterpart in DDP (ROADMAP Queue 1 item 8). SimOTA, distillation, repopt,
-the office graphs (item 10) and per-block rematerialization raise.
+It runs on the card unless the caller passes device="cpu". Data parallel
+(the JAX package's 'data' mesh): when the process group is up
+(parallel/ddp.py), each rank loads its shard of every global batch
+(--batch-size stays the global batch), the train step is the global
+batch's (core/train_state.py), the model starts from rank
+0's weights, and only rank 0 evaluates, saves checkpoints and logs.
+SimOTA, distillation, repopt, the office graphs (ROADMAP Queue 1,
+remaining training variants) and per-block rematerialization raise.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import os.path as osp
 import time
@@ -30,6 +35,7 @@ from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
 from mafyolo_tpu_torch.data.datasets import DetectionDataset
 from mafyolo_tpu_torch.data.loader import create_dataloader
 from mafyolo_tpu_torch.models import build_model
+from mafyolo_tpu_torch.parallel import ddp
 from mafyolo_tpu_torch.solver.build import build_lr_fn, warmup_schedule
 from mafyolo_tpu_torch.utils.bridge import (state_dict_to_train_variables,
                                             train_variables_to_state_dict)
@@ -39,21 +45,23 @@ from mafyolo_tpu_torch.utils.checkpoint import (find_latest_checkpoint, load_che
 from mafyolo_tpu_torch.utils.events import LOGGER
 
 
-def _unported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+def _unported(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1, remaining training variants)")
 
 
 class Schedule:
-    """The solver scaling of one run on one card (engine.py:79-84, 118-121)
-    and its step plan: warm-up lr and momentum, gradient accumulation
-    (engine.py:305-312)."""
+    """The solver scaling of one run (engine.py:79-84, 118-121; batch_size
+    is the global batch, world_size the data-parallel ranks) and its step
+    plan: warm-up lr and momentum, gradient accumulation (engine.py:305-312)."""
 
-    def __init__(self, solver, batch_size: int, epochs: int, max_stepnum: int):
+    def __init__(self, solver, batch_size: int, epochs: int, max_stepnum: int,
+                 world_size: int = 1):
         self.solver = solver
         self.batch_size, self.max_stepnum = batch_size, max_stepnum
         accumulate = max(1, round(64 / batch_size))
         self.weight_decay = solver["weight_decay"] * batch_size * accumulate / 64
-        self.lr0 = solver["lr0"] * batch_size / 32
+        self.lr0 = solver["lr0"] * batch_size / (world_size * 32)
         self.lf = build_lr_fn(solver["lr_scheduler"], solver["lrf"], epochs)
         self.warmup_stepnum = max(round(solver["warmup_epochs"] * max_stepnum), 1000) \
             if solver["warmup_epochs"] else 0
@@ -91,20 +99,25 @@ class Trainer:
         self.device = torch.device(device)
         self.dataset_cls = dataset_cls
         self.img_size = args.img_size
-        self.batch_size = args.batch_size
+        self.batch_size = args.batch_size          # global batch
+        self.rank, self.world = ddp.rank(), ddp.world_size()
+        if self.batch_size % self.world:
+            raise ValueError(f"the world size {self.world} must divide the global batch "
+                             f"size {self.batch_size}")
         self.epochs = args.epochs
         self.nc = int(data_dict["nc"])
         self.save_dir = args.save_dir
+        self.main = ddp.is_main_process()
         os.makedirs(self.save_dir, exist_ok=True)
 
         if cfg.model.get("build_type", "yaml") != "yaml":
-            _unported("the office graphs (build_type != 'yaml')", 10)
+            _unported("the office graphs (build_type != 'yaml')")
         if cfg.get("training_mode", "repvgg") == "repopt":
-            _unported("training_mode='repopt'", 10)
+            _unported("training_mode='repopt'")
         if getattr(args, "simota", False) or cfg.model.get("target") == "SimOTA":
-            _unported("the SimOTA loss", 10)
+            _unported("the SimOTA loss")
         if getattr(args, "distill", False):
-            _unported("distillation", 10)
+            _unported("distillation")
         if getattr(args, "remat", False):
             raise NotImplementedError(
                 "per-block rematerialization is not ported: N trains at bs32@640 "
@@ -142,7 +155,8 @@ class Trainer:
             host_augment = False
         self.train_loader, self.train_dataset = self._loader(hyp, host_augment)
         self.max_stepnum = len(self.train_loader)
-        self.schedule = Schedule(cfg.solver, self.batch_size, self.epochs, self.max_stepnum)
+        self.schedule = Schedule(cfg.solver, self.batch_size, self.epochs, self.max_stepnum,
+                                 self.world)
 
         if getattr(args, "pretrained", None):
             ckpt = load_checkpoint(args.pretrained)
@@ -151,6 +165,8 @@ class Trainer:
             model.load_state_dict(train_variables_to_state_dict({"params": matched}),
                                   strict=False)
         model = model.to(self.device).to(memory_format=torch.channels_last)
+        if self.world > 1:
+            ddp.broadcast_state(model)
         # the EMA starts as a copy of the (pretrained) model
         self.state = init_train_state(model, weight_decay=self.schedule.weight_decay,
                                       lr0=self.schedule.lr0,
@@ -172,14 +188,14 @@ class Trainer:
         self.best_stop_aug_ap = 0.0
         self.ap = 0.0
         self.tb = None
-        if getattr(args, "tensorboard", True):
+        if self.main and getattr(args, "tensorboard", True):
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self.tb = SummaryWriter(self.save_dir)
             except ImportError:
                 LOGGER.info("tensorboard writer unavailable; skipping")
         self.wandb = None
-        if getattr(args, "wandb", False):
+        if self.main and getattr(args, "wandb", False):
             try:
                 import wandb
                 self.wandb = wandb
@@ -189,12 +205,17 @@ class Trainer:
                 LOGGER.warning(f"wandb unavailable ({e}); continuing without")
 
     def _loader(self, hyp, augment: bool):
-        return create_dataloader(
-            self.data_dict["train"], self.img_size, self.batch_size, stride=32, hyp=hyp,
-            augment=augment, workers=self.args.workers, shuffle=True, seed=self.args.seed,
-            max_labels=getattr(self.args, "max_labels", 120),
+        """This rank's loader: batches of batch_size / world from the
+        rank::world stride of each epoch's order. Under data parallel a last
+        partial batch is dropped, so every rank takes the same full batches."""
+        loader, dataset = create_dataloader(
+            self.data_dict["train"], self.img_size, self.batch_size // self.world, stride=32,
+            hyp=hyp, augment=augment, workers=self.args.workers, shuffle=True,
+            seed=self.args.seed, max_labels=getattr(self.args, "max_labels", 120),
             use_processes=getattr(self.args, "loader_processes", False),
-            dataset_cls=self.dataset_cls)
+            dataset_cls=self.dataset_cls, shard_id=self.rank, num_shards=self.world)
+        loader.drop_last = loader.drop_last or self.world > 1
+        return loader, dataset
 
     def _make_train_step(self):
         head = self.cfg.model.head
@@ -261,7 +282,8 @@ class Trainer:
                 self.eval_and_save(epoch)
             LOGGER.info(f"training done in {(time.time() - t0) / 3600:.2f}h; "
                         f"best AP {self.best_ap:.4f}")
-            self.strip_models()
+            if self.main:
+                self.strip_models()
         except Exception:
             LOGGER.error("training failed")
             raise
@@ -304,7 +326,8 @@ class Trainer:
         epoch (a torch.profiler trace in save_dir/profile)."""
         prof = None
         profile = getattr(self.args, "profile", False) and epoch == self.start_epoch
-        for step, (imgs, targets, _) in enumerate(self.train_loader):
+        batches = itertools.islice(self.train_loader, self.max_stepnum)
+        for step, (imgs, targets, _) in enumerate(batches):
             if profile and step == 2:
                 from torch.profiler import ProfilerActivity, profile as torch_profile
                 acts = [ProfilerActivity.CPU] + (
@@ -343,8 +366,8 @@ class Trainer:
         sched = self.schedule.lrs(0, epoch)
         for step, batch in enumerate(self._device_batches(epoch)):
             metrics = self._step(epoch, step, batch, mark)
-            n_imgs += batch[0].shape[0]
-            if step % 50 == 0:
+            n_imgs += batch[0].shape[0] * self.world
+            if step % 50 == 0 and self.main:
                 sched = self.schedule.lrs(step, epoch)
                 vals = {k: float(v) for k, v in metrics.items()}
                 running = vals if running is None else {
@@ -383,7 +406,9 @@ class Trainer:
         """Evaluate the EMA when _should_eval says so (rect batches, as the
         reference's mid-train protocol), then write last_ckpt (and best_ckpt
         on a new best AP, best_stop_aug_ckpt in the tail). -> the eval's
-        metrics, or None."""
+        metrics, or None. Rank 0's alone: the other ranks return None."""
+        if not self.main:
+            return None
         do_eval = self._should_eval(epoch) and "val" in self.data_dict
         save_interval = int(getattr(self.args, "save_interval", 1))
         will_save = (do_eval or epoch % max(1, save_interval) == 0

@@ -16,7 +16,12 @@ With device_aug, the step augments the batch on its device first
 device_augment does the BGR -> RGB flip and the /255 itself.
 
 Loss normalization: by the batch's target_scores_sum, the single-device
-large-batch semantics of the JAX step (train_state.py:11-15).
+large-batch semantics of the JAX step (train_state.py:11-15). Inside a
+process group of more than one rank (parallel/ddp.py) the step is one
+rank's part of that global-batch step: the ranks' batches make the global
+batch, BatchNorm, the loss's normalizer and device augmentation see all of
+it, an apply step sums the ranks' gradients, and the metrics are the global
+batch's.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 
 from mafyolo_tpu_torch.data.device_aug import aug_seed, device_augment
 from mafyolo_tpu_torch.models.losses import detection_loss
+from mafyolo_tpu_torch.parallel import ddp
 from mafyolo_tpu_torch.solver.build import GROUP_BIAS, GROUP_BNW, GROUP_WEIGHT, build_optimizer
 from mafyolo_tpu_torch.utils.ema import ModelEMA
 
@@ -60,25 +66,32 @@ def make_train_step(*, num_classes: int, img_size: int,
 
     imgs_u8 [B,H,W,3] uint8 BGR and targets [B,N,5] on the model's device.
     dtype is the compute dtype: bf16 runs the forward under autocast, f32
-    runs it plain. device_aug, if given, is device_augment's hyps (the
+    runs it plain (the images take the model's parameter dtype, as JAX's
+    take model.dtype). device_aug, if given, is device_augment's hyps (the
     Trainer's `device_aug` dict). mark(stage), if given, is called after
     each stage ("augment" with device_aug, "forward", "loss", "backward",
-    "optimizer") for timing."""
+    "optimizer") for timing. Inside a process group of more than one rank,
+    imgs_u8 and targets are this rank's rows of the global batch
+    (parallel/ddp.py), every rank calls the step with the same schedule, and
+    the state stays equal on all of them."""
 
     def step(state: TrainState, imgs_u8, targets, lr_bnw: float, lr_w: float,
              lr_b: float, momentum: float, do_apply: bool, use_atss: bool,
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         model = state.model.train()
         dev = imgs_u8.device.type
+        data_parallel = ddp.world_size() > 1
         if device_aug is not None:
             gen = torch.Generator(device=imgs_u8.device)
             gen.manual_seed(aug_seed(seed, state.rng_step))
-            imgs, targets = device_augment(imgs_u8, targets, gen, **device_aug)
+            augment = ddp.device_augment_shard if data_parallel else device_augment
+            imgs, targets = augment(imgs_u8, targets, gen, **device_aug)
             if mark:
                 mark("augment")
         else:
             # BGR uint8 -> RGB float in [0, 1]
             imgs = imgs_u8.flip(-1).float() / 255.0
+        imgs = imgs.to(next(model.parameters()).dtype)
         with torch.autocast(dev, dtype=dtype, enabled=dtype != torch.float32):
             outs = model(imgs)
         if mark:
@@ -93,6 +106,8 @@ def make_train_step(*, num_classes: int, img_size: int,
         if mark:
             mark("backward")
         if do_apply:
+            if data_parallel:
+                ddp.all_reduce_grads(model.parameters())
             opt = state.optimizer
             for gid, lr in ((GROUP_BNW, lr_bnw), (GROUP_WEIGHT, lr_w), (GROUP_BIAS, lr_b)):
                 opt.param_groups[gid]["lr"] = lr
@@ -104,6 +119,10 @@ def make_train_step(*, num_classes: int, img_size: int,
         state.rng_step += 1
         if mark:
             mark("optimizer")
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in comps.items()}}
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in comps.items()}}
+        if data_parallel:
+            total = ddp.all_reduce_sum(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, total.unbind()))
+        return metrics
 
     return step

@@ -113,6 +113,11 @@ def params_to(p: Dict, device) -> Dict:
     return {k: v.to(device) if torch.is_tensor(v) else v for k, v in p.items()}
 
 
+def take_rows(p: Dict, rows) -> Dict:
+    """The drawn parameters of samples `rows` alone."""
+    return {k: v[rows] if torch.is_tensor(v) else v for k, v in p.items()}
+
+
 def _source_coords(m_inv, out_h: int, out_w: int):
     """[B,H',W'] source x and y of every output pixel through m_inv [B,3,3]."""
     dev = m_inv.device
@@ -256,10 +261,10 @@ def transform_labels(labels, m, s_gain, out_h: int, out_w: int):
 
 
 def mosaic_labels_canvas(labels, sources, xc, yc, s: int):
-    """The labels of each sample's four tiles ([B,N,5] of the batch, tile
-    q of sample i is labels[sources[i, q]]) in canvas pixels -> (cls
-    [B,4N,1], xyxy [B,4N,4]), tile by tile."""
-    b, n, _ = labels.shape
+    """The labels of each sample's four tiles ([B,N,5] of the batch; tile
+    q of sample i is labels[sources[i, q]], sources [S,4]) in canvas pixels
+    -> (cls [S,4N,1], xyxy [S,4N,4]), tile by tile."""
+    b, n = sources.shape[0], labels.shape[1]
     lbl4 = labels[sources]                                     # [B,4,N,5]
     offs = torch.stack([torch.stack([xc - s, yc - s], -1), torch.stack([xc, yc - s], -1),
                         torch.stack([xc - s, yc], -1), torch.stack([xc, yc], -1)], 1)
@@ -279,44 +284,64 @@ def compact_labels(lbl, n_out: int):
     return torch.cat([torch.where(out[..., :1] >= 0, out[..., :1], -1.0), out[..., 1:]], -1)
 
 
-def apply(imgs_u8, labels, p: Dict):
+def _mosaic(imgs, labels, p: Dict, sel, n: int):
+    """The mosaic images and labels of samples `sel` of the batch."""
+    s = imgs.shape[1]
+    sources = torch.cat([sel[:, None], p["donors"][sel]], 1)
+    m, xc, yc = p["m"][sel], p["xc"][sel], p["yc"][sel]
+    img = warp_mosaic_bilinear(imgs, sources, torch.linalg.inv(m), xc, yc, s, s)
+    cls4, xyxy4 = mosaic_labels_canvas(labels, sources, xc, yc, s)
+    return img, compact_labels(affine_label_corners(cls4, xyxy4, m, p["s"][sel], s, s), n)
+
+
+def apply(imgs_u8, labels, p: Dict, rows=None):
     """[B,H,W,3] uint8 BGR + [B,N,5] labels + draw()'s parameters ->
     (RGB float32 images in [0, 1], [B,N,5] labels), as the JAX
     device_augment computes them for the same parameters: mosaic (selected
     by do_mo; samples without it keep their image unwarped) or affine;
-    then mixup with the partner's mosaic; then HSV and flips."""
+    then mixup with the partner's mosaic; then HSV and flips.
+
+    rows, if given, are the samples to augment (a data-parallel rank's
+    share of the global batch, parallel/ddp.py): the output has a row for
+    each, the mosaic and mixup read any row of the batch, and only these
+    samples and their mixup partners are warped."""
     b, h, w, _ = imgs_u8.shape
     n = labels.shape[1]
-    labels = labels.float()
-    imgs = imgs_u8.flip(-1).float() / 255.0                      # BGR -> RGB
-    idx = torch.arange(b, device=imgs.device)
+    batch_lbl = labels.float()
+    batch_img = imgs_u8.flip(-1).float() / 255.0                 # BGR -> RGB
+    whole = rows is None
+    if whole:
+        rows, q, imgs, labels = torch.arange(b, device=batch_img.device), p, batch_img, batch_lbl
+    else:
+        q, imgs, labels = take_rows(p, rows), batch_img[rows], batch_lbl[rows]
     if "donors" in p:
         if h != w:
             raise ValueError(f"the device mosaic takes square images, not {h}x{w}")
-        m_inv = torch.linalg.inv(p["m"])
-        sources = torch.cat([idx[:, None], p["donors"]], 1)
-        mo_img = warp_mosaic_bilinear(imgs, sources, m_inv, p["xc"], p["yc"], h, w)
-        cls4, xyxy4 = mosaic_labels_canvas(labels, sources, p["xc"], p["yc"], h)
-        mo_lbl = compact_labels(affine_label_corners(cls4, xyxy4, p["m"], p["s"], h, w), n)
-        do_mo = p["do_mo"]
-        imgs = torch.where(do_mo[:, None, None, None], mo_img, imgs)
-        labels = torch.where(do_mo[:, None, None], mo_lbl, labels)
-        if "partner" in p:
+        mixing = "partner" in p
+        # the whole batch's mosaics include every partner's; a share warps
+        # its partners' after its own
+        warp = torch.cat([rows, q["partner"]]) if mixing and not whole else rows
+        mo_img, mo_lbl = _mosaic(batch_img, batch_lbl, p, warp, n)
+        own = rows.shape[0]
+        do_mo = q["do_mo"]
+        imgs = torch.where(do_mo[:, None, None, None], mo_img[:own], imgs)
+        labels = torch.where(do_mo[:, None, None], mo_lbl[:own], labels)
+        if mixing:
             n_valid = (labels[..., 0] >= 0).sum(1)
-            do = do_mo & (p["u_mix"] | ((n_valid <= p["dy_label"]) & p["u_dy"]))
-            r = p["r"][:, None, None, None]
-            part = p["partner"]
+            do = do_mo & (q["u_mix"] | ((n_valid <= p["dy_label"]) & q["u_dy"]))
+            r = q["r"][:, None, None, None]
+            part = q["partner"] if whole else torch.arange(own, 2 * own, device=rows.device)
             imgs = torch.where(do[:, None, None, None], imgs * r + mo_img[part] * (1.0 - r),
                                imgs)
             both = compact_labels(torch.cat([labels, mo_lbl[part]], 1), n)
             labels = torch.where(do[:, None, None], both, labels)
-    elif "m" in p:
-        imgs = warp_bilinear(imgs, torch.linalg.inv(p["m"]), h, w)
-        labels = transform_labels(labels, p["m"], p["s"], h, w)
-    if "gains" in p:
-        imgs = hsv_jitter(imgs, p["gains"])
+    elif "m" in q:
+        imgs = warp_bilinear(imgs, torch.linalg.inv(q["m"]), h, w)
+        labels = transform_labels(labels, q["m"], q["s"], h, w)
+    if "gains" in q:
+        imgs = hsv_jitter(imgs, q["gains"])
     live = labels[..., 0] >= 0
-    do_lr, do_ud = p["do_lr"], p["do_ud"]
+    do_lr, do_ud = q["do_lr"], q["do_ud"]
     imgs = torch.where(do_lr[:, None, None, None], imgs.flip(2), imgs)
     x = torch.where(live & do_lr[:, None], 1.0 - labels[..., 1], labels[..., 1])
     imgs = torch.where(do_ud[:, None, None, None], imgs.flip(1), imgs)

@@ -36,6 +36,7 @@ from torch import nn
 
 from mafyolo_tpu_torch.ops import quant_conv as QC
 from mafyolo_tpu_torch.ops.dwconv import dw_conv
+from mafyolo_tpu_torch.parallel import ddp
 
 # Branch schedule of the UniRepLKNet dilated-reparam block for each origin
 # kernel size: (kernel, dilation) pairs; a copy of blocks.py:580-589.
@@ -72,7 +73,13 @@ class BatchNorm(nn.Module):
     Train mode normalizes with the batch statistics and updates
     ra = 0.97 * ra + 0.03 * batch with the BIASED batch variance
     (torch.nn.BatchNorm2d uses the unbiased one). The statistics come from
-    the same fused batch_norm call, in f32 whatever the input dtype."""
+    the same fused batch_norm call, in f32 whatever the input dtype.
+
+    Inside a process group of more than one rank (data parallel,
+    parallel/ddp.py) they are the global batch's, as flax takes them over a
+    sharded batch: each channel's sum and sum of squares (f32 at least) are
+    summed over the ranks by an all-reduce that autograd sees, and
+    var = E[x^2] - E[x]^2 (flax's own formula), clamped at 0."""
 
     def __init__(self, ch: int, momentum: float = 0.97, eps: float = 1e-3):
         super().__init__()
@@ -86,6 +93,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if ddp.world_size() > 1:
+            return self._global_forward(x)
         # momentum 1 makes batch_norm write the batch mean and the unbiased
         # batch variance into these two buffers
         mean = torch.zeros_like(self.running_mean)
@@ -97,6 +106,23 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(self.momentum).add_(
                 var, alpha=(1 - self.momentum) * (n - 1) / n)
         return y
+
+    def _global_forward(self, x):
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           xf.new_full((1,), xf.numel() // c)])
+        total = ddp.all_reduce_sum(local)
+        n = total[-1]
+        mean = total[:c] / n
+        var = (total[c:2 * c] / n - mean * mean).clamp(min=0.0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean[None, :, None, None]) * scale[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        return y.to(x.dtype)
 
 
 class DWConv(nn.Module):

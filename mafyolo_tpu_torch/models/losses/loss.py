@@ -18,6 +18,7 @@ from mafyolo_tpu_torch.models.detect import (bbox2dist, dfl_decode, dist2bbox,
                                              flatten_train_outputs,
                                              generate_anchors_train)
 from mafyolo_tpu_torch.ops.boxes import iou_loss, xywh2xyxy
+from mafyolo_tpu_torch.parallel import ddp
 
 LOSS_WEIGHT = {"class": 1.0, "iou": 2.5, "dfl": 0.5}   # loss.py:77
 
@@ -54,7 +55,10 @@ def detection_loss(head_outs: Sequence[Tuple], targets, *, use_atss: bool,
                    iou_type: str = "giou"):
     """-> (total_loss, dict(iou=, dfl=, cls=)), f32 scalars. use_atss is
     epoch < atss_warmup_epoch (loss.py:83). The DFL head (use_dfl=True) is
-    the MAF configs' only one."""
+    the MAF configs' only one. Inside a process group of more than one rank
+    (a data-parallel step, parallel/ddp.py) every term is divided by the
+    global batch's target_scores_sum, so the ranks' losses add up to the
+    global batch's."""
     hw_list, pred_scores, pred_distri = flatten_train_outputs(head_outs)
     pred_scores, pred_distri = pred_scores.float(), pred_distri.float()
     dev = pred_scores.device
@@ -88,6 +92,8 @@ def detection_loss(head_outs: Sequence[Tuple], targets, *, use_atss: bool,
     one_hot = F.one_hot(labels_bg, num_classes + 1)[..., :num_classes]
     loss_cls = varifocal_loss(pred_scores, target_scores, one_hot)
     tss = target_scores.sum()
+    if ddp.world_size() > 1:
+        tss = ddp.all_reduce_sum(tss)
     denom = torch.where(tss > 0, tss, torch.ones_like(tss))
     loss_cls = loss_cls / denom
 

@@ -31,7 +31,8 @@ def iou_loss(box1, box2, iou_type: str = "giou", eps: float = 1e-10):
     (boxes.py:83-136), with the reference's asymmetric eps: heights get +eps,
     widths do not. Only iou_type 'giou', the MAF configs' one, is ported."""
     if iou_type.lower() != "giou":
-        raise NotImplementedError(f"iou_type {iou_type!r} is not ported")
+        raise NotImplementedError(f"iou_type {iou_type!r} is not ported yet "
+                                  f"(ROADMAP Queue 1, remaining training variants)")
     b1_x1, b1_y1, b1_x2, b1_y2 = box1.unbind(-1)
     b2_x1, b2_y1, b2_x2, b2_y2 = box2.unbind(-1)
     inter = ((torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1)).clamp(min=0)

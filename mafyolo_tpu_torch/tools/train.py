@@ -10,8 +10,16 @@ best_ckpt.npck and, in the stop-aug tail, best_stop_aug_ckpt.npck, in the
 JAX package's checkpoint layout. Reading the dataset yaml needs PyYAML,
 and decoding image files needs OpenCV. --quant --calib --pretrained ckpt
 runs INT8 PTQ calibration and its eval through tools/quantize.py, as the
-JAX CLI does; --quant or --calib alone (QAT through the Trainer),
---simota, --distill and --device-count are not ported and raise.
+JAX CLI does; --quant or --calib alone (QAT through the Trainer), --simota
+and --distill are not ported and raise.
+
+Data parallel (parallel/ddp.py), --batch-size the global batch:
+--device-count N trains on the first N local devices, N ranks spawned here
+(NCCL on the card, gloo with --device cpu; N = 1 runs its one rank in this
+process); under torchrun (RANK, WORLD_SIZE, LOCAL_RANK in the environment)
+each process is one rank on cuda:LOCAL_RANK:
+
+    torchrun --nproc_per_node 4 -m mafyolo_tpu_torch.tools.train --conf ...
 """
 import argparse
 import os
@@ -63,7 +71,7 @@ def get_args_parser():
     p.add_argument("--calib", action="store_true",
                    help="PTQ calibration (with --quant; tools/quantize.py)")
     p.add_argument("--device-count", type=int, default=None,
-                   help="data parallel over N cards (not ported)")
+                   help="data parallel over the first N local devices")
     p.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
     return p
 
@@ -76,11 +84,11 @@ def increment_name(path):
     return f"{path}{n + 1}"
 
 
-def main(args):
-    from mafyolo_tpu_torch.core.engine import Trainer
-    from mafyolo_tpu_torch.utils.config import Config
-    from mafyolo_tpu_torch.utils.events import LOGGER, load_yaml, save_yaml
-
+def main(args, data_dict=None, dataset_cls=None):
+    """Train as args say. data_dict, if given, stands for the --data yaml and
+    dataset_cls for DetectionDataset (utils/sample.py:ArrayDataset serves
+    images held in memory); the run's args.yaml is then not written, since
+    the data are the caller's."""
     if args.quant and args.calib:
         # PTQ calibrates and evaluates an existing checkpoint, so a trained
         # model is mandatory (tools/train.py:98-110 of the JAX package)
@@ -97,18 +105,55 @@ def main(args):
         raise NotImplementedError("--quant or --calib alone (QAT through the Trainer) "
                                   "is not a feature of the JAX package either: "
                                   "use --quant --calib, or tools/quantize.py --qat")
+    if "WORLD_SIZE" in os.environ:               # one rank of torchrun's
+        from mafyolo_tpu_torch.parallel import ddp
+        rank, _, local_rank = ddp.init_distributed(args.device)
+        try:
+            device = f"cuda:{local_rank}" if args.device.startswith("cuda") else args.device
+            return _run(rank, args, device, data_dict, dataset_cls)
+        finally:
+            ddp.dist.destroy_process_group()
     if args.device_count is not None:
-        raise NotImplementedError("--device-count (data parallel) is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+        from mafyolo_tpu_torch.parallel import ddp
+        devices = ddp.check_devices(args.device_count, args.device)
+        return ddp.launch(_run_on, args.device_count, args, devices, data_dict, dataset_cls,
+                          device=args.device)
+    return _run(0, args, args.device, data_dict, dataset_cls)
+
+
+def _run_on(rank, args, devices, data_dict, dataset_cls):
+    return _run(rank, args, devices[rank], data_dict, dataset_cls)
+
+
+def _run(rank, args, device, data_dict=None, dataset_cls=None):
+    """Train as rank `rank` on `device`; in a process group, rank 0 names the
+    run's directory for all."""
+    import torch
+
+    from mafyolo_tpu_torch.core.engine import Trainer
+    from mafyolo_tpu_torch.data.datasets import DetectionDataset
+    from mafyolo_tpu_torch.parallel import ddp
+    from mafyolo_tpu_torch.utils.config import Config
+    from mafyolo_tpu_torch.utils.events import LOGGER, load_yaml, save_yaml
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     cfg = Config.fromfile(args.conf_file)
-    data_dict = load_yaml(args.data_path)
-    args.save_dir = increment_name(osp.join(args.output_dir, args.name))
-    os.makedirs(args.save_dir, exist_ok=True)
-    save_yaml({k: v for k, v in vars(args).items() if not callable(v)},
-              osp.join(args.save_dir, "args.yaml"))
-    LOGGER.info(f"save dir: {args.save_dir}")
-    trainer = Trainer(args, cfg, data_dict, device=args.device)
-    return trainer.train()
+    record = data_dict is None
+    data_dict = load_yaml(args.data_path) if record else data_dict
+    save_dir = [increment_name(osp.join(args.output_dir, args.name)) if rank == 0 else None]
+    if ddp.active():
+        ddp.dist.broadcast_object_list(save_dir, 0)
+    args.save_dir = save_dir[0]
+    if rank == 0:
+        os.makedirs(args.save_dir, exist_ok=True)
+        if record:
+            save_yaml({k: v for k, v in vars(args).items() if not callable(v)},
+                      osp.join(args.save_dir, "args.yaml"))
+        LOGGER.info(f"save dir: {args.save_dir}")
+    return Trainer(args, cfg, data_dict, device=device,
+                   dataset_cls=dataset_cls or DetectionDataset).train()
 
 
 if __name__ == "__main__":

@@ -9,8 +9,8 @@ port's state_dict). Either package reads what the other wrote.
 and casts to fp16, as the JAX one does. A calibrated INT8 checkpoint
 (`save_calibrated`, the layout of the JAX tools/quantize.py:101-105) is
 {model: {params} folded, quant: the amax tree, folded: True, meta, ema:
-None}. The `.pt` bridge for the released reference checkpoints is not
-ported yet.
+None}. A reference `.pt` (the released MAFYOLO{n,s,m}.pt) is read through
+utils/torch_bridge.py into the same layout.
 """
 from __future__ import annotations
 
@@ -55,11 +55,11 @@ def save_checkpoint(ckpt: Dict, is_best: bool, save_dir: str,
 
 def load_checkpoint(path: str) -> Dict:
     """The raw checkpoint dict of a `.npck` file, which this package or the
-    JAX package wrote (unpickling runs code: load only such files)."""
+    JAX package wrote, or of a reference `.pt` (utils/torch_bridge.py).
+    Unpickling runs code: load only such files."""
     if path.endswith(".pt"):
-        raise NotImplementedError(
-            "reference .pt checkpoints need the torch bridge, which is not ported "
-            "yet (ROADMAP Queue 1 item 5)")
+        from mafyolo_tpu_torch.utils.torch_bridge import load_torch_checkpoint
+        return load_torch_checkpoint(path)
     with open(path, "rb") as f:
         return pickle.load(f)
 

@@ -3,8 +3,10 @@ and the card's tests share: images, eval and train sets held in memory
 (ArrayDataset: the card's machine has no image decoder), an Evaler on random
 deploy weights whose heads give detections, the depthwise sites of a train
 graph with inputs for each, aten's weight gradient of the same conv (timed
-beside the dw_grad kernel, never called by the port), and the NMS kernel's
-timing inputs."""
+beside the dw_grad kernel, never called by the port), the NMS kernel's
+timing inputs, and a train-form tree written out under the reference's
+state_dict keys (the inverse of utils/torch_bridge.py, for `.pt` files made
+from random weights)."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -84,6 +86,25 @@ def train_set(seed, n, size=IMG, nc=NC):
     made as eval_set makes them (1-30 labelled rectangles each, textured),
     the train set of the card's trainer runs."""
     return eval_set(seed, [(size, size)] * n, nc=nc)
+
+
+def train_batch(seed, b, img, device, max_boxes=120, nc=NC):
+    """uint8 BGR images [b,img,img,3] and padded targets [b,max_boxes,5]
+    (1-30 boxes per image: cls, cx, cy, w, h normalized; pad rows cls -1),
+    made on the device from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    imgs = torch.randint(0, 256, (b, img, img, 3), generator=gen, device=device,
+                         dtype=torch.uint8)
+    u = torch.rand((b, max_boxes, 5), generator=gen, device=device)
+    n = torch.randint(1, 31, (b, 1), generator=gen, device=device)
+    real = torch.arange(max_boxes, device=device)[None, :] < n
+    wh = 0.03 + 0.5 * u[..., 3:5]
+    xy = wh / 2 + u[..., 1:3] * (1 - wh)
+    cls = (u[..., 0] * nc).floor().clamp(max=nc - 1)
+    t = torch.cat([cls[..., None], xy, wh], -1)
+    t = torch.where(real[..., None], t, torch.zeros_like(t))
+    t[..., 0] = torch.where(real, t[..., 0], -1.0)
+    return imgs, t
 
 
 def labels_from_detections(preds, dataset, min_score=0.1, max_per_class=100):
@@ -258,3 +279,81 @@ def capture_nms_inputs(predict):
         NMS.greedy_nms = real
     assert real is G.greedy_nms
     return calls
+
+
+def _ref_bn(p, s, prefix, out):
+    out[f"{prefix}.weight"], out[f"{prefix}.bias"] = p["scale"], p["bias"]
+    out[f"{prefix}.running_mean"], out[f"{prefix}.running_var"] = s["mean"], s["var"]
+
+
+def _ref_kernel(k):
+    return np.ascontiguousarray(np.transpose(np.asarray(k, np.float32), (3, 2, 0, 1)))
+
+
+def _ref_convbn(p, s, prefix, out):
+    out[f"{prefix}.conv.weight"] = _ref_kernel(p["conv"]["kernel"])
+    _ref_bn(p["bn"], s["bn"], f"{prefix}.bn", out)
+
+
+def _ref_repvgg(p, s, prefix, out, has_identity):
+    _ref_convbn(p["dense"], s["dense"], f"{prefix}.rbr_dense", out)
+    _ref_convbn(p["pw"], s["pw"], f"{prefix}.rbr_1x1", out)
+    if has_identity:
+        _ref_bn(p["idbn"], s["idbn"], f"{prefix}.rbr_identity", out)
+
+
+def _ref_unireplk(p, s, prefix, out):
+    drb, drs = p["drb"], s["drb"]
+    out[f"{prefix}.dwconv.lk_origin.weight"] = _ref_kernel(drb["origin"]["conv"]["kernel"])
+    _ref_bn(drb["origin"]["bn"], drs["origin"]["bn"], f"{prefix}.dwconv.origin_bn", out)
+    for name in drb:
+        if name.startswith("dil_k"):
+            ks, r = name[len("dil_k"):].split("_r")
+            out[f"{prefix}.dwconv.dil_conv_k{ks}_{r}.weight"] = _ref_kernel(
+                drb[name]["conv"]["kernel"])
+            _ref_bn(drb[name]["bn"], drs[name]["bn"], f"{prefix}.dwconv.dil_bn_k{ks}_{r}", out)
+    _ref_bn(p["post_bn"], s["post_bn"], f"{prefix}.norm", out)
+
+
+def reference_state_dict(variables, specs):
+    """A train-form {'params','batch_stats'} tree (numpy, HWIO) -> the
+    reference's state_dict of the same weights ('backbone.{i}.' keys, OIHW,
+    torch tensors): the inverse of utils/torch_bridge.py:convert_layer for
+    the yaml graphs' kinds, with the reference's key quirks (rbr_identity
+    only where cin == cout at stride 1, dil_conv_k{k}_{r} / dil_bn_k{k}_{r},
+    cls_conv_s / reg_conv_s, MPRep's conv1 / conv2)."""
+    params, stats = variables["params"]["net"], variables["batch_stats"]["net"]
+    out = {}
+    for spec in specs:
+        name, kw, pfx = f"layer{spec.idx}", spec.kw, f"backbone.{spec.idx}"
+        if name not in params:
+            continue
+        p, s = params[name], stats.get(name, {})
+        if spec.kind == "ConvWrapper":
+            _ref_convbn(p["block"], s["block"], f"{pfx}.block", out)
+        elif spec.kind == "RepVGGBlock":
+            _ref_repvgg(p, s, pfx, out, kw["cin"] == kw["cout"] and kw["stride"] == 1)
+        elif spec.kind == "SPPF":
+            for cv in ("cv1", "cv2"):
+                _ref_convbn(p[cv], s[cv], f"{pfx}.{cv}", out)
+        elif spec.kind == "MPRep":
+            _ref_convbn(p["pool_proj"], s["pool_proj"], f"{pfx}.conv1", out)
+            _ref_repvgg(p["rep_down"], s["rep_down"], f"{pfx}.conv2", out, False)
+        elif spec.kind == "RepHDW":
+            _ref_convbn(p["cv_in"], s["cv_in"], f"{pfx}.conv1", out)
+            _ref_convbn(p["cv_out"], s["cv_out"], f"{pfx}.conv2", out)
+            for i in range(kw["depth"]):
+                mp, ms, mpfx = p[f"m{i}"], s[f"m{i}"], f"{pfx}.m.{i}"
+                _ref_convbn(mp["expand"], ms["expand"], f"{mpfx}.conv1", out)
+                _ref_unireplk(mp["dw"], ms["dw"], f"{mpfx}.conv2", out)
+                _ref_convbn(mp["project"], ms["project"], f"{mpfx}.one_conv", out)
+        elif spec.kind == "Head_DepthUni":
+            _ref_convbn(p["stem"], s["stem"], f"{pfx}.stem", out)
+            for role in ("cls", "reg"):
+                _ref_unireplk(p[f"{role}_dw"], s[f"{role}_dw"], f"{pfx}.{role}_conv", out)
+                _ref_convbn(p[f"{role}_proj"], s[f"{role}_proj"], f"{pfx}.{role}_conv_s", out)
+                out[f"{pfx}.{role}_pred.weight"] = _ref_kernel(p[f"{role}_pred"]["kernel"])
+                out[f"{pfx}.{role}_pred.bias"] = p[f"{role}_pred"]["bias"]
+        else:
+            raise NotImplementedError(spec.kind)
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}

@@ -3,8 +3,8 @@ package's, f32 on the CPU.
 
 The random streams differ (jax.random against a torch.Generator), so the
 port's apply half is held against JAX on the parameters that JAX itself
-draws: `_jax_params` replays device_augment's key splits (one key per
-sample, split in 9) and hands the matrices, donors,
+draws: `torch_common.jax_aug_params` replays device_augment's key splits
+(one key per sample, split in 9) and hands the matrices, donors,
 centres, gates, partners, beta draws, HSV gains and flips to `apply`.
 Tolerances: the gather warps and everything downstream of them 1e-4 (f32;
 the two packages invert the affine by different routines, and HSV divides
@@ -21,6 +21,7 @@ import torch
 
 from mafyolo_tpu.data import device_aug as J
 from mafyolo_tpu_torch.data import device_aug as D
+from torch_common import jax_aug_params
 
 SHIPPED = dict(degrees=0.0, translate=0.1, scale=0.5, shear=0.0, hsv_h=0.015, hsv_s=0.7,
                hsv_v=0.4, fliplr=0.5, flipud=0.0, mosaic=1.0, mixup=0.0, dy_label=5,
@@ -29,44 +30,6 @@ SHIPPED = dict(degrees=0.0, translate=0.1, scale=0.5, shear=0.0, hsv_h=0.015, hs
 
 def _t(x):
     return torch.from_numpy(np.array(x))
-
-
-def _jax_params(key, b, h, w, *, degrees=0.0, translate=0.1, scale=0.5, shear=0.0,
-                hsv_h=0.015, hsv_s=0.7, hsv_v=0.4, fliplr=0.5, flipud=0.0, mosaic=0.0,
-                mixup=0.0, dy_label=5, dy_mixup=0.0):
-    """The parameters JAX's device_augment draws from `key`, in the port's
-    layout (data/device_aug.py:draw)."""
-    rows = []
-    for k in jax.random.split(key, b):
-        ka, kh, kf1, kf2, km, kd, kb, kp, kr = jax.random.split(k, 9)
-        r = {}
-        if mosaic:
-            r["m"], r["s"] = J._affine_matrix(ka, 2 * h, 2 * h, degrees, translate, scale,
-                                              shear, out_h=h, out_w=h)
-            r["donors"] = jax.random.randint(kd, (3,), 0, b)
-            cxy = jnp.floor(jax.random.uniform(km, (2,), minval=0.5 * h, maxval=1.5 * h))
-            r["xc"], r["yc"] = cxy[0], cxy[1]
-            r["do_mo"] = jax.random.uniform(kb) < mosaic
-            if mixup or dy_mixup:
-                kp1, kp2, kp3 = jax.random.split(kp, 3)
-                r["partner"] = jax.random.randint(kp1, (), 0, b)
-                r["u_mix"] = jax.random.uniform(kp2) < mixup
-                r["u_dy"] = jax.random.uniform(kp3) < dy_mixup
-                r["r"] = jax.random.beta(kr, 32.0, 32.0)
-        elif degrees or translate or scale or shear:
-            r["m"], r["s"] = J._affine_matrix(ka, h, w, degrees, translate, scale, shear)
-        if hsv_h or hsv_s or hsv_v:
-            r["gains"] = jax.random.uniform(kh, (3,), minval=-1, maxval=1) \
-                * jnp.array([hsv_h, hsv_s, hsv_v]) + 1.0
-        r["do_lr"] = jax.random.uniform(kf1) < fliplr
-        r["do_ud"] = jax.random.uniform(kf2) < flipud
-        rows.append(r)
-    p = {k: torch.stack([_t(r[k]) for r in rows]) for k in rows[0]}
-    for k in ("donors", "partner"):
-        if k in p:
-            p[k] = p[k].long()
-    p["dy_label"] = dy_label
-    return p
 
 
 def _batch(seed, b=4, h=64, n=8):
@@ -119,7 +82,7 @@ def test_apply_matches_jax_device_augment(cfg, img_tol):
         want_img, want_lbl = J.device_augment(
             jnp.asarray(imgs), jnp.asarray(labels), key,
             **dict(cfg, hsv_h=0.0, hsv_s=0.0, hsv_v=0.0))
-        p = _jax_params(key, *imgs.shape[:3], **cfg)
+        p = jax_aug_params(key, *imgs.shape[:3], **cfg)
         if "gains" in p:
             want_img = jnp.stack([_jax_hsv(want_img[i], jnp.asarray(p["gains"][i].numpy()))
                                   for i in range(len(imgs))])

@@ -478,3 +478,126 @@ def test_int8_fused_silu_every_bf16_value(cuda_device):
     from mafyolo_tpu_torch.utils.sample import int8_silu_every_bf16
     n, differ = int8_silu_every_bf16(cuda_device)
     assert n == 65280 and differ == 0, differ
+
+
+@pytest.mark.parametrize("graph", ["maf-yolo-s", "maf-yolo-m"])
+def test_dw_grad_kernel_at_s_and_m_sites(cuda_device, graph):
+    """dk at every distinct DW site of S's and M's train graphs at 640 px
+    (wider channel groups than N's, with remainders), B=2 in bf16, against
+    the plain version at 1e-3 of the largest |dk|."""
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.utils.sample import dw_site_inputs, dw_sites
+    model = build_model(graph, nc=7).to(cuda_device).to(memory_format=torch.channels_last)
+    sites = sorted(set(dw_sites(model, 640, cuda_device)))
+    assert len(sites) > 25
+    for site in sites:
+        k, pad, dil = site[3:]
+        x, g = dw_site_inputs(site, 2, cuda_device)
+        got = DG.dw_grad(x, g, k, pad, dil)
+        want = DG.dw_grad_plain(x, g, k, pad, dil)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * want.abs().max().item(),
+                                   msg=lambda m: f"{site}: {m}")
+
+
+def test_pt_round_trip_on_the_card(cuda_device, tmp_path):
+    """N's random train-form weights written as a reference `.pt` and as a
+    `.npck`, each read by load_checkpoint and served in bf16 by the Evaler
+    on the card (front-end and NMS kernels): the outputs are bit-equal."""
+    import pickle
+
+    from mafyolo_tpu_torch.core.evaler import Evaler
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.utils.bridge import random_train_variables
+    from mafyolo_tpu_torch.utils.checkpoint import load_checkpoint
+    from mafyolo_tpu_torch.utils.sample import reference_state_dict
+    specs = build_model("maf-yolo-n", nc=7).specs
+    variables = random_train_variables(specs, seed=2)
+    torch.save({"ema": reference_state_dict(variables, specs)}, tmp_path / "n.pt")
+    with open(tmp_path / "n.npck", "wb") as f:
+        pickle.dump({"model": variables, "ema": None, "meta": {"graph": "maf-yolo-n", "nc": 7}},
+                    f)
+    imgs = torch.from_numpy(u8_images(4, (2, 256, 256, 3))).to(cuda_device)
+    outs = []
+    for name in ("n.pt", "n.npck"):
+        ckpt = load_checkpoint(str(tmp_path / name))
+        assert ckpt["meta"] == {"graph": "maf-yolo-n", "nc": 7}
+        ev = Evaler(half=True, device=cuda_device)
+        ev.init_model("maf-yolo-n", ckpt["model"], 7, folded=False)
+        before = (F.frontend_forward.launches, G.greedy_nms.launches)
+        outs.append(ev.predict(imgs))
+        assert F.frontend_forward.launches == before[0] + 1 and G.greedy_nms.launches > before[1]
+    for k in outs[1]:
+        assert torch.equal(outs[0][k], outs[1][k]), k
+
+
+def _gloo_rank(rank, out_dir, variables, imgs, targets):
+    import pickle
+
+    from mafyolo_tpu_torch.parallel import ddp
+    dev = torch.device("cuda:0")
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        assert ddp.world_size() == 2
+        pickle.dump(_n_steps(variables, imgs[rank::2], targets[rank::2], dev), f)
+
+
+def _n_steps(variables, imgs, targets, dev):
+    """N in f32: an apply step, an accumulate-only and an apply step ->
+    (state as numpy trees, dw_grad launches)."""
+    from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.utils.bridge import (state_dict_to_train_variables,
+                                                train_variables_to_state_dict)
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model("maf-yolo-n", nc=5)
+    model.load_state_dict(train_variables_to_state_dict(variables))
+    model = model.to(dev).to(memory_format=torch.channels_last)
+    state = init_train_state(model, weight_decay=5e-4)
+    step = make_train_step(num_classes=5, img_size=imgs.shape[1])
+    before = DG.dw_grad.launches
+    # cuDNN deterministic: the run repeats (tools/ddp_check.py:run_steps)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for do_apply, use_atss in ((True, True), (False, False), (True, False)):
+            step(state, imgs.to(dev), targets.to(dev), 0.01, 0.01, 0.01, 0.9, do_apply,
+                 use_atss)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    names = {id(p): n for n, p in model.named_parameters()}
+    mom = {names[id(p)]: s["momentum_buffer"] for p, s in state.optimizer.state.items()}
+    return {"model": state_dict_to_train_variables(model.state_dict()),
+            "mom": state_dict_to_train_variables(mom)["params"],
+            "launches": DG.dw_grad.launches - before}
+
+
+def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    """Two spawned ranks on the one card (gloo over CUDA tensors) against one
+    process on the whole batch of 8 at 320 px, f32 (well enough conditioned
+    there, as chip_smoke.py's ddp gate): the two ranks bit-equal, every leaf
+    within tests/test_multidev_equivalence.py's tolerances elementwise
+    (params and BN statistics rtol 1e-5 / atol 1e-6, momentum rtol 1e-4 /
+    atol 2e-5); dw_grad launched on each rank."""
+    import pickle
+
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.parallel import ddp
+    from mafyolo_tpu_torch.utils.bridge import state_dict_to_train_variables
+    from torch_common import tree_leaves
+    torch.manual_seed(0)
+    variables = state_dict_to_train_variables(build_model("maf-yolo-n", nc=5).state_dict())
+    rng = np.random.default_rng(7)
+    imgs = torch.from_numpy(rng.integers(0, 255, (8, 320, 320, 3), dtype=np.uint8))
+    targets = torch.full((8, 8, 5), -1.0)
+    targets[:, 0] = torch.tensor([1.0, 0.5, 0.5, 0.4, 0.4])
+    targets[:, 1] = torch.tensor([3.0, 0.25, 0.25, 0.2, 0.3])
+    ddp.launch(_gloo_rank, 2, str(tmp_path), variables, imgs, targets, device="cuda",
+               backend="gloo", init_method=f"file://{tmp_path}/rendezvous")
+    ranks = [pickle.load(open(tmp_path / f"rank{r}.pkl", "rb")) for r in range(2)]
+    one = _n_steps(variables, imgs, targets, cuda_device)
+    assert ranks[0]["launches"] == ranks[1]["launches"] == one["launches"] > 0
+    for tree in ("model", "mom"):
+        got, want = dict(tree_leaves(ranks[0][tree])), dict(tree_leaves(one[tree]))
+        other = dict(tree_leaves(ranks[1][tree]))
+        rtol, atol = (1e-4, 2e-5) if tree == "mom" else (1e-5, 1e-6)
+        for k, w in want.items():
+            assert np.array_equal(got[k], other[k]), k
+            np.testing.assert_allclose(got[k], w, rtol=rtol, atol=atol, err_msg=k)

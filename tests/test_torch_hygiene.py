@@ -126,19 +126,16 @@ assert ck["ema"] is None and "opt" not in ck
 
 
 def test_unported_inputs_raise(tmp_path):
-    """A reference .pt checkpoint raises NotImplementedError naming its
-    ROADMAP item, as do the train CLI's unported options (the Trainer's are
-    in tests/test_torch_trainer.py); --quant or --calib without the other
-    (QAT through the Trainer, no feature of the JAX CLI either) raises too,
-    and --quant --calib without --pretrained exits with a message
-    (tests/test_torch_quantize_cli.py drives the route itself)."""
+    """The train CLI's unported options raise (the Trainer's are in
+    tests/test_torch_trainer.py): --quant or --calib without the other
+    (QAT through the Trainer, no feature of the JAX CLI either) raises, and
+    --quant --calib without --pretrained exits with a message
+    (tests/test_torch_quantize_cli.py drives the route itself). A reference
+    .pt and --device-count are read and run (tests/test_torch_torch_bridge.py,
+    tests/test_torch_ddp.py)."""
     from mafyolo_tpu_torch.tools import train as train_cli
-    from mafyolo_tpu_torch.utils.checkpoint import load_checkpoint
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        load_checkpoint(str(tmp_path / "yolov6n.pt"))
     for argv, match in ((["--quant"], "QAT through the Trainer"),
-                        (["--calib"], "QAT through the Trainer"),
-                        (["--device-count", "2"], "Queue 1 item 8")):
+                        (["--calib"], "QAT through the Trainer")):
         args = train_cli.get_args_parser().parse_args(
             argv + ["--output-dir", str(tmp_path / "runs")])
         with pytest.raises(NotImplementedError, match=match):

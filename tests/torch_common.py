@@ -76,3 +76,50 @@ def prior_head_weights(graph, nc: int, seed: int = 5):
                 tree[k] = 0.01 * v if k == "kernel" else np.full_like(v, -np.log(99.0))
     walk(variables["params"])
     return variables
+
+
+def jax_aug_params(key, b, h, w, *, degrees=0.0, translate=0.1, scale=0.5, shear=0.0,
+                   hsv_h=0.015, hsv_s=0.7, hsv_v=0.4, fliplr=0.5, flipud=0.0, mosaic=0.0,
+                   mixup=0.0, dy_label=5, dy_mixup=0.0):
+    """The parameters JAX's device_augment draws from `key`, in the port's
+    layout (data/device_aug.py:draw): its key splits replayed (one key per
+    sample, split in 9)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mafyolo_tpu.data import device_aug as J
+
+    def _t(x):
+        return torch.from_numpy(np.array(x))
+
+    rows = []
+    for k in jax.random.split(key, b):
+        ka, kh, kf1, kf2, km, kd, kb, kp, kr = jax.random.split(k, 9)
+        r = {}
+        if mosaic:
+            r["m"], r["s"] = J._affine_matrix(ka, 2 * h, 2 * h, degrees, translate, scale,
+                                              shear, out_h=h, out_w=h)
+            r["donors"] = jax.random.randint(kd, (3,), 0, b)
+            cxy = jnp.floor(jax.random.uniform(km, (2,), minval=0.5 * h, maxval=1.5 * h))
+            r["xc"], r["yc"] = cxy[0], cxy[1]
+            r["do_mo"] = jax.random.uniform(kb) < mosaic
+            if mixup or dy_mixup:
+                kp1, kp2, kp3 = jax.random.split(kp, 3)
+                r["partner"] = jax.random.randint(kp1, (), 0, b)
+                r["u_mix"] = jax.random.uniform(kp2) < mixup
+                r["u_dy"] = jax.random.uniform(kp3) < dy_mixup
+                r["r"] = jax.random.beta(kr, 32.0, 32.0)
+        elif degrees or translate or scale or shear:
+            r["m"], r["s"] = J._affine_matrix(ka, h, w, degrees, translate, scale, shear)
+        if hsv_h or hsv_s or hsv_v:
+            r["gains"] = jax.random.uniform(kh, (3,), minval=-1, maxval=1) \
+                * jnp.array([hsv_h, hsv_s, hsv_v]) + 1.0
+        r["do_lr"] = jax.random.uniform(kf1) < fliplr
+        r["do_ud"] = jax.random.uniform(kf2) < flipud
+        rows.append(r)
+    p = {k: torch.stack([_t(r[k]) for r in rows]) for k in rows[0]}
+    for k in ("donors", "partner"):
+        if k in p:
+            p[k] = p[k].long()
+    p["dy_label"] = dy_label
+    return p

@@ -122,6 +122,18 @@ Phases, in order; any failure exits non-zero without a result line:
                 tools/quantize.run --eval on images held in memory, then
                 the img/s of int8-real, int8-sim and bf16 and each int8
                 kernel by site and class of site, warm and cold.
+ 22-24. sm_train, bridge, ddp  S and M training, reference `.pt`
+                checkpoints, data parallel (each phase's docstring lists
+                its gates).
+ 25. recipes    MAF-YOLO-N's training recipes (recipes_phase's docstring
+                lists the gates): two bs32@640 bf16 steps each under giou,
+                diou, ciou, siou, wiou, distillation, SimOTA and repopt
+                through the Trainer's step, the dw_grad launches read
+                around them, and each step's ms beside giou's; each recipe's
+                f32 step card against CPU; a distillation Trainer and a
+                repopt + Wise-IoU Trainer for an epoch on images held in
+                memory, evaluated, the repopt EMA served; SimOTA's decode
+                through batched_nms.
 Each entry of the "kernels" line carries bound_ms, the least time the card
 could take: the larger of the bytes moved (inputs read once, outputs written
 once) over 3.35 TB/s and the operations over the peak rate of the operand
@@ -174,6 +186,10 @@ SM_TRAIN = (("maf-yolo-s", 16, ((False, True), (True, True), (False, False), (Tr
 # f32; an apply step, then an accumulate-only step and an apply step
 DDP_IMG, DDP_BATCH, DDP_WORLD = 320, 4, 2
 DDP_TIMED_STEPS = 3
+# recipes: the epoch of the recipe steps (TAL; distillation's decay at
+# 4 / 300 of the way) and the images of its two Trainer epochs
+RECIPE_EPOCH = 4
+RECIPE_IMAGES = 72
 # device_augment on the card against the CPU on the same draw: the f32
 # bilinear taps differ by rounding only (one 8-bit level is 1/255)
 DEVICE_AUG_TOL = 1.0 / 255
@@ -902,25 +918,27 @@ def main():
     dk_err = max(dk_err, sm["dk_err"])
     bridge_phase(dev)
     ddp_phase(dev, card)
+    rec = recipes_phase(dev, card)
     torch.set_grad_enabled(False)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "frontend", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/frontend.cu",
          "replaces": "mafyolo_tpu/ops/frontend_pallas.py:467",
-         "launches": launches["frontend"], "max_abs_err": fe_err["maf-yolo-n"],
+         "launches": launches["frontend"] + rec["frontend"],
+         "max_abs_err": fe_err["maf-yolo-n"],
          "ms": fe_n["frontend_ms"], "plain_ms": fe_n["frontend_plain_ms"],
          "bound_ms": fe_n["bound_ms"], "bound_by": fe_n["bound_by"],
          "library_ms": fe_n["model_layers0_2_ms"]},
         {"name": "greedy_nms", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "mafyolo_tpu/ops/pallas_nms.py:60",
-         "launches": launches["greedy_nms"], "max_abs_err": nms_err,
+         "launches": launches["greedy_nms"] + rec["greedy_nms"], "max_abs_err": nms_err,
          "ms": nms_ms[512], "plain_ms": nms_plain_ms[512],
          "bound_ms": nms_bound["bound_ms"], "bound_by": nms_bound["bound_by"],
          "library_ms": None},
         {"name": "dw_grad", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/dw_grad.cu",
          "replaces": "mafyolo_tpu/ops/dw_grad_pallas.py:143 and :47",
-         "launches": train["launches"], "max_abs_err": dk_err,
+         "launches": train["launches"] + rec["dw_grad"], "max_abs_err": dk_err,
          "ms": train["dk_ms"], "plain_ms": train["dk_plain_ms"],
          "bound_ms": train["dk_bound"]["bound_ms"], "bound_by": train["dk_bound"]["bound_by"],
          "library_ms": train["dk_library_ms"]},
@@ -1481,11 +1499,11 @@ def trainer_phase(dev, card):
     step_fn = a.train_step
 
     def watched(state, imgs, targets, lr_bnw, lr_w, lr_b, momentum, do_apply, use_atss,
-                mark=None):
+                **kw):
         params = [(n, p) for n, p in state.model.named_parameters()]
         before = [p.detach().clone() for _, p in params]
         met = step_fn(state, imgs, targets, lr_bnw, lr_w, lr_b, momentum, do_apply,
-                      use_atss, mark=mark)
+                      use_atss, **kw)
         moved = sum(not torch.equal(p, b) for (_, p), b in zip(params, before))
         record.append({"batch": int(imgs.shape[0]), "applied": bool(do_apply),
                        "lr_weight": lr_w, "lr_bias": lr_b, "use_atss": use_atss,
@@ -1875,42 +1893,64 @@ def train_phases(dev):
             "dk_bound": bound(dk_bytes, dk_flops, "bf16")}
 
 
-def step_card_vs_cpu(dev, graph, n_sites, phase="train_check"):
+def step_card_vs_cpu(dev, graph, n_sites, phase="train_check", recipe=None):
     """One f32 step of `graph` at bs2@160 on the card (the dw_grad kernel)
     against the CPU (its plain version), from the same random train weights:
-    loss components within 1e-3, each gradient and BN buffer within 1e-2 of
-    its scale; the card's step launches dw_grad once a DW site."""
+    loss components (and Wise-IoU's running mean) within 1e-3, each gradient
+    and BN buffer within 1e-2 of its scale; the card's step launches dw_grad
+    once a DW site. recipe (recipes_phase's RECIPES entry) gives the step's
+    loss and its inputs: the plain graph re-initialized and masked by
+    repopt_prepare from the same scales, or a teacher from other random
+    weights, on both sides alike."""
+    import numpy as np
     import torch
 
     from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
     from mafyolo_tpu_torch.models import build_model
     from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.solver import repopt as R
     from mafyolo_tpu_torch.utils.bridge import (random_train_variables,
                                                 train_variables_to_state_dict)
     cl = torch.channels_last
-    variables = random_train_variables(build_model(graph, nc=NC).specs, seed=3)
+    recipe = recipe or {}
+    plain = recipe.get("training_mode") == "repopt"
+    variables = random_train_variables(build_model(graph, nc=NC, plain_rep=plain).specs, seed=3,
+                                       plain_rep=plain)
     imgs, targets = train_batch(7, 2, 160, dev)
     grads, comps, bn = {}, {}, {}
     for key, where in (("card", dev), ("cpu", "cpu")):
-        m = build_model(graph, nc=NC)
+        m = build_model(graph, nc=NC, plain_rep=plain)
         m.load_state_dict(train_variables_to_state_dict(variables))
+        kw = {k: recipe[k] for k in ("loss_type", "iou_type") if k in recipe}
+        if plain:
+            masks = R.repopt_prepare(m, R.random_scales_like(m, np.random.default_rng(1)),
+                                     np.random.default_rng(2))
+            kw["grad_mask"] = {n: v.to(where) for n, v in masks.items()}
+        if recipe.get("loss_type") == "distill":
+            t = build_model(graph, nc=NC)
+            t.load_state_dict(train_variables_to_state_dict(
+                random_train_variables(t.specs, seed=4)))
+            kw.update(teacher=t.to(where).to(memory_format=cl), distill_feat=True)
         m = m.to(where).to(memory_format=cl)
         st = init_train_state(m, weight_decay=5e-4)
         before = DG.dw_grad.launches
-        met = make_train_step(num_classes=NC, img_size=160)(
-            st, imgs.to(where), targets.to(where), 0.01, 0.01, 0.01, 0.9, False, False)
+        met = make_train_step(num_classes=NC, img_size=160, **kw)(
+            st, imgs.to(where), targets.to(where), 0.01, 0.01, 0.01, 0.9, False, False,
+            epoch_num=RECIPE_EPOCH)
         if key == "card":
             check(DG.dw_grad.launches - before == n_sites, f"{phase}: dw_grad not launched")
         comps[key] = {k: float(v) for k, v in met.items()}
+        comps[key]["wiou_mean"] = float(st.wiou_mean)
         grads[key] = {n: p.grad for n, p in m.named_parameters()}
         bn[key] = {n: b for n, b in m.named_buffers()}
     g_err = _leaf_errors(grads["card"], grads["cpu"])
     s_err = _leaf_errors(bn["card"], bn["cpu"])
     l_err = max(abs(comps["card"][k] - v) / max(abs(v), 1e-6) for k, v in comps["cpu"].items())
     worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
-    emit(phase=phase, model=graph, batch=2, img=160, dtype="f32", loss_cpu=comps["cpu"],
-         loss_card=comps["card"], loss_rel_err=l_err, grad_leaves=len(g_err),
-         grad_max_rel_err=max(g_err.values()), grad_worst=worst,
+    emit(phase=phase, model=graph if isinstance(graph, str) else "maf-yolo-n (Head_simota)",
+         recipe={k: v for k, v in recipe.items() if k != "graph"}, batch=2, img=160,
+         dtype="f32", loss_cpu=comps["cpu"], loss_card=comps["card"], loss_rel_err=l_err,
+         grad_leaves=len(g_err), grad_max_rel_err=max(g_err.values()), grad_worst=worst,
          bn_stats_max_rel_err=max(s_err.values()),
          tolerance="loss components rel 1e-3; each gradient and BN buffer: "
                    "max|card - cpu| <= 1e-2 * max(max|cpu leaf|, 1e-2 * max over leaves)")
@@ -2669,6 +2709,272 @@ def ddp_phase(dev, card):
           "ddp_cli: bad checkpoint")
     check(not ddp.active(), "ddp_cli: the process group outlived the run")
     tmp.cleanup()
+
+
+def simota_graph():
+    """MAF-YOLO-N's graph with its three head rows as Head_simota, each as
+    wide as the Head_DepthUni it replaces, reg_max 0."""
+    import copy
+
+    from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
+    g = copy.deepcopy(MODEL_ZOO["maf-yolo-n"])
+    g["effidehead"] = [[f, n, "Head_simota", [args[0], 0]] if m == "Head_DepthUni"
+                       else [f, n, m, args] for f, n, m, args in g["effidehead"]]
+    return g
+
+
+def recipes_phase(dev, card):
+    """Phase 25: MAF-YOLO-N trained under each training recipe on the card.
+    RECIPES: giou (the configs' own), diou, ciou, siou, wiou (Wise-IoU, its
+    running mean in the state), distill (--distill with --distill-feat, the
+    teacher N from another seed saved as .npck and read by the Trainer's
+    path), simota (N's graph with Head_simota heads) and repopt
+    (training_mode='repopt', scales from random_scales_like pickled and read
+    back by load_scales; the kernels re-initialized). Per recipe, a Trainer
+    at bs32@640 bf16 from its init, two steps on batches made on the card
+    (accumulate-only, then apply; TAL, epoch RECIPE_EPOCH), the dw_grad
+    launches read around them; gates: every loss finite, dw_grad launched
+    once a DW site a step (SimOTA's heads have none), one update, Wise-IoU's
+    mean moved from 1 by its recipe only; then the same two steps again,
+    timed by CUDA events, beside giou's. Each recipe's f32 step at bs2@160
+    on the card against the CPU (step_card_vs_cpu). Then two Trainers
+    through an epoch of RECIPE_IMAGES images held in memory with
+    --device-aug, evaluated by run_eval on the EMA (the front-end and NMS
+    launches read around it): --distill, and repopt with iou_type 'wiou'
+    from --pretrained random plain weights (the distillation loss knows no
+    Wise-IoU and raises, as JAX's does). Gates: the evals launch the
+    front-end once a batch and NMS at least as often; the repopt run's
+    checkpoint holds a Wise-IoU mean other than 1, and a Trainer resumed
+    from it starts from it bit for bit; its EMA folded and served by
+    Evaler.predict at bs32@640 (one front-end launch), and in f32 on the
+    card against the CPU on 2 images, >= 95% of the CPU's detections above
+    0.1 matched. Last, SimOTA's decode (decode_simota_eval) of the simota
+    Trainer's model on a bs32 batch through batched_nms, the NMS kernel's
+    launches counted, its boxes, scores, classes and valid mask equal to the
+    plain greedy NMS's on a CPU copy of the same predictions. -> the
+    launches of the phase, per kernel."""
+    import pickle
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from mafyolo_tpu_torch.core.engine import Schedule, Trainer
+    from mafyolo_tpu_torch.core.evaler import Evaler
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.models.detect import decode_simota_eval
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.ops.nms import batched_nms
+    from mafyolo_tpu_torch.solver import repopt as R
+    from mafyolo_tpu_torch.utils.bridge import (random_train_variables,
+                                                state_dict_to_train_variables)
+    from mafyolo_tpu_torch.utils.checkpoint import load_checkpoint
+    from mafyolo_tpu_torch.utils.config import Config
+    from mafyolo_tpu_torch.utils.sample import ArrayDataset, dw_sites, eval_set, images, train_set
+
+    tmp = tempfile.TemporaryDirectory()
+    total = {"dw_grad": 0, "frontend": 0, "greedy_nms": 0}
+
+    def launches():
+        return {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
+                "greedy_nms": G.greedy_nms.launches}
+
+    def counted(fn):
+        """fn() with the launches it makes added to the phase's."""
+        before = launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in launches().items():
+            total[k] += v - before[k]
+        return out, {k: v - before[k] for k, v in launches().items()}
+
+    # the teacher: N from another seed, as a checkpoint the Trainer reads
+    teacher_path = os.path.join(tmp.name, "teacher.npck")
+    with open(teacher_path, "wb") as f:
+        pickle.dump({"model": random_train_variables(build_model("maf-yolo-n", nc=NC).specs, 23),
+                     "ema": None, "meta": {"graph": "maf-yolo-n", "nc": NC}}, f)
+    # repopt's scales: random_scales_like on the plain graph, pickled
+    scales_path = os.path.join(tmp.name, "scales.pkl")
+    with open(scales_path, "wb") as f:
+        pickle.dump(R.random_scales_like(build_model("maf-yolo-n", nc=NC, plain_rep=True),
+                                         np.random.default_rng(0)), f)
+    sim = simota_graph()
+    recipes = {
+        "giou": {}, "diou": {"iou_type": "diou"}, "ciou": {"iou_type": "ciou"},
+        "siou": {"iou_type": "siou"}, "wiou": {"iou_type": "wiou"},
+        "distill": {"loss_type": "distill"},
+        "simota": {"loss_type": "simota", "iou_type": "ciou", "graph": sim},
+        "repopt": {"training_mode": "repopt"},
+    }
+
+    def config(recipe):
+        cfg = Config.fromfile(os.path.join(HERE, "configs", "maf_yolo_n.py"))
+        if "iou_type" in recipe:
+            cfg.model.head.iou_type = recipe["iou_type"]
+        if "graph" in recipe:
+            cfg.model.graph = recipe["graph"]
+        if recipe.get("training_mode") == "repopt":
+            cfg.training_mode = "repopt"
+            cfg.model.scales = scales_path
+        return cfg
+
+    def trainer(name, recipe, save, data, **kw):
+        args = SimpleNamespace(img_size=IMG, batch_size=BATCH, epochs=300, workers=8, seed=0,
+                               save_dir=os.path.join(tmp.name, save), tensorboard=False,
+                               simota=recipe.get("loss_type") == "simota",
+                               distill=recipe.get("loss_type") == "distill",
+                               teacher_model_path=teacher_path, distill_feat=True, **kw)
+        return Trainer(args, config(recipe), data, device=dev, dataset_cls=ArrayDataset)
+
+    batches = [train_batch(700 + i, BATCH, IMG, dev) for i in range(2)]
+    rows, step_ms, sim_tr = {}, {}, None
+    for name, recipe in recipes.items():
+        torch.manual_seed(0)
+        tr = trainer(name, recipe, name, {"train": train_set(43, 8, size=IMG), "nc": NC})
+        tr.schedule = Schedule(tr.cfg.solver, BATCH, 300, STEPS_PER_EPOCH)
+        # the first step accumulates, the second applies (accumulate 2 at bs32)
+        accumulate = tr.schedule.lrs(0, RECIPE_EPOCH)["accumulate"]
+        last_opt = STEPS_PER_EPOCH * RECIPE_EPOCH + 1 - accumulate
+        tr.schedule.last_opt_step = last_opt
+        n_sites = len(dw_sites(tr.state.model, IMG, dev))
+        metrics, n = counted(lambda: tr._train_steps(RECIPE_EPOCH, batches))
+        losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+        mean = float(tr.state.wiou_mean)
+        updates = tr.state.updates
+        # the same two steps again, timed
+        tr.schedule.last_opt_step = last_opt
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        tr._train_steps(RECIPE_EPOCH, batches)
+        t1.record()
+        torch.cuda.synchronize()
+        step_ms[name] = t0.elapsed_time(t1) / 2
+        rows[name] = {"dw_sites": n_sites, "dw_grad_launches": n["dw_grad"], "losses": losses,
+                      "updates": updates, "wiou_mean": mean, "step_ms": step_ms[name],
+                      "loss_type": tr.loss_type, "grad_masks": len(tr.grad_mask or {})}
+        check(all(np.isfinite(v) for lo in losses for v in lo.values()),
+              f"recipes {name}: non-finite loss {losses}")
+        check(n["dw_grad"] == 2 * n_sites and n_sites > 0,
+              f"recipes {name}: dw_grad launches {n['dw_grad']} != 2 x {n_sites} DW sites")
+        check(updates == 1, f"recipes {name}: {updates} updates after accumulate + apply")
+        check((mean != 1.0) == (name == "wiou") and np.isfinite(mean),
+              f"recipes {name}: Wise-IoU mean {mean}")
+        if name == "simota":
+            sim_tr = tr
+        else:
+            del tr
+        torch.cuda.empty_cache()
+    emit(phase="recipes", model="maf-yolo-n", dtype="bf16", batch=BATCH, img=IMG,
+         epoch=RECIPE_EPOCH, card=card, recipes=rows, step_ms=step_ms,
+         step_ms_over_giou={k: v / step_ms["giou"] for k, v in step_ms.items()},
+         note="two steps (accumulate-only, apply) each from the recipe's init; step_ms: "
+              "CUDA events over the same two steps run again, a record and not a claim")
+    check(rows["simota"]["dw_sites"] < rows["giou"]["dw_sites"] == rows["repopt"]["dw_sites"],
+          f"recipes: DW sites {[(k, r['dw_sites']) for k, r in rows.items()]}")
+    check(rows["repopt"]["grad_masks"] == 5, "recipes: repopt masks")
+
+    # each recipe's f32 step, card against CPU
+    for name, recipe in recipes.items():
+        if name == "giou":
+            continue      # phase 16
+        graph = recipe.get("graph", "maf-yolo-n")
+        step_card_vs_cpu(dev, graph, rows[name]["dw_sites"], phase=f"recipes_check_{name}",
+                         recipe=recipe)
+
+    # SimOTA's decode: decode_simota_eval -> batched_nms, bs32
+    model = sim_tr.state.model.eval()
+    x = images(701, BATCH, IMG, IMG).to(dev)
+    with torch.no_grad(), torch.autocast(dev.type, dtype=torch.bfloat16):
+        outs = model(x.flip(-1).float() / 255.0)
+    pred = decode_simota_eval(outs, model.strides)
+    # obj x cls sits near the prior's 1e-4 two steps from the init
+    out, n = counted(lambda: batched_nms(pred, conf_thres=1e-5))
+    # the same candidates through the plain greedy NMS on the CPU: the
+    # kernel reproduces the plain IoU bit for bit, so every output is equal
+    want = batched_nms(pred.cpu(), conf_thres=1e-5)
+    differ = {k: int((out[k].cpu() != want[k]).any(-1).sum().item()) if out[k].dim() == 3
+              else int((out[k].cpu() != want[k]).sum().item()) for k in want}
+    emit(phase="recipes_simota_decode", batch=BATCH, img=IMG, anchors=pred.shape[1],
+         launches=n, dets_per_image_mean=float(out["valid"].sum(1).float().mean().item()),
+         max_conf=float((pred[..., 5:] * pred[..., 4:5]).max().item()),
+         differ_from_cpu=differ)
+    check(not any(differ.values()),
+          f"recipes: simota decode: the card's NMS differs from the CPU's plain one: {differ}")
+    check(pred.shape == (BATCH, sum((IMG // s) ** 2 for s in model.strides), 5 + NC)
+          and bool(torch.isfinite(pred).all()), "recipes: simota decode")
+    check(n["greedy_nms"] >= 1 and out["boxes"].shape == (BATCH, 300, 4)
+          and bool(out["valid"].any()) and bool(torch.isfinite(out["boxes"]).all()),
+          f"recipes: simota decode: NMS launches {n}, {int(out['valid'].sum())} detections")
+    del sim_tr, model, outs, pred
+    torch.cuda.empty_cache()
+
+    # two Trainers end to end: --distill, and repopt with Wise-IoU
+    sizes = [hw for hw, k in EVAL_SIZES.items() for _ in range(k)]
+    data = {"train": train_set(44, RECIPE_IMAGES, size=IMG), "val": eval_set(21, sizes),
+            "nc": NC, "names": [str(c) for c in range(NC)]}
+    eval_batches = -(-len(sizes) // min(2 * BATCH, 64))
+    pre = os.path.join(tmp.name, "plain.npck")
+    with open(pre, "wb") as f:
+        pickle.dump({"model": random_train_variables(build_model(
+            "maf-yolo-n", nc=NC, plain_rep=True).specs, 24, plain_rep=True)}, f)
+    epochs = {}
+    for name, recipe, kw in (("distill", recipes["distill"], {}),
+                             ("repopt_wiou", dict(recipes["repopt"], iou_type="wiou"),
+                              {"pretrained": pre})):
+        tr = trainer(name, recipe, f"epoch_{name}", data, device_aug=True,
+                     stop_aug_last_n_epoch=0, **kw)
+        tr.epochs = 1                        # epoch 0 is the last: it evaluates
+        before = launches()
+        (_, n_train) = counted(lambda: tr.train_one_epoch(0))
+        metrics, n_eval = counted(lambda: tr.eval_and_save(0))
+        ckpt = load_checkpoint(os.path.join(tmp.name, f"epoch_{name}", "last_ckpt.npck"))
+        epochs[name] = {"train_launches": n_train, "eval_launches": n_eval,
+                        "metrics": metrics, "updates": tr.state.updates,
+                        "wiou_mean": ckpt["wiou_mean"]}
+        check(metrics is not None and all(np.isfinite(v) for v in metrics.values()),
+              f"recipes trainer {name}: eval {metrics}")
+        check(n_eval["frontend"] == eval_batches and n_eval["greedy_nms"] >= eval_batches,
+              f"recipes trainer {name}: eval launches {n_eval} over {eval_batches} batches")
+        check(n_train["dw_grad"] > 0 and tr.state.updates > 0,
+              f"recipes trainer {name}: {n_train}, updates {tr.state.updates}")
+        if name == "distill":
+            check(ckpt["wiou_mean"] == 1.0, "recipes trainer distill: Wise-IoU mean moved")
+            del tr
+            continue
+        check(ckpt["wiou_mean"] != 1.0, f"recipes trainer: Wise-IoU mean {ckpt['wiou_mean']}")
+        again = trainer(name, recipe, "resumed", data, device_aug=True,
+                        stop_aug_last_n_epoch=0,
+                        resume=os.path.join(tmp.name, f"epoch_{name}", "last_ckpt.npck"))
+        resumed = bool(torch.equal(again.state.wiou_mean, tr.state.wiou_mean))
+        epochs[name]["resumed_bit_equal"] = resumed
+        check(resumed and float(again.state.wiou_mean) == ckpt["wiou_mean"],
+              "recipes trainer: the resumed Wise-IoU mean differs")
+        ema = state_dict_to_train_variables(tr.state.ema.state_dict())
+        del tr, again
+
+    # the repopt EMA folded and served; f32 card against the CPU
+    ev = Evaler(half=True, device=dev)
+    ev.init_model("maf-yolo-n", ema, NC, folded=False)
+    served, n = counted(lambda: ev.predict(images(702, BATCH, IMG, IMG).to(dev)))
+    gpu32, cpu32 = Evaler(half=False, device=dev), Evaler(half=False, device="cpu")
+    gpu32.init_model("maf-yolo-n", ema, NC, folded=False)
+    cpu32.init_model("maf-yolo-n", ema, NC, folded=False)
+    two = images(703, 2, IMG, IMG)
+    card32, _ = counted(lambda: {k: v.cpu() for k, v in gpu32.predict(two.to(dev)).items()})
+    n_ref, matched = match(cpu32.predict(two), card32, 0.1)
+    emit(phase="recipes_trainers", card=card, images=RECIPE_IMAGES, epochs=epochs,
+         repopt_serve_launches=n,
+         repopt_dets_per_image_mean=float(served["valid"].sum(1).float().mean().item()),
+         repopt_f32_cpu_dets_above_0p1=n_ref, repopt_f32_matched=matched)
+    check(n["frontend"] == 1 and n["greedy_nms"] >= 1,
+          f"recipes: the repopt EMA's predict launches {n}")
+    check(n_ref >= 10 and matched / n_ref >= 0.95,
+          f"recipes: repopt EMA card vs CPU: {matched}/{n_ref} detections matched")
+    tmp.cleanup()
+    return total
 
 
 if __name__ == "__main__":

@@ -16,8 +16,17 @@ It runs on the card unless the caller passes device="cpu". Data parallel
 (--batch-size stays the global batch), the train step is the global
 batch's (core/train_state.py), the model starts from rank
 0's weights, and only rank 0 evaluates, saves checkpoints and logs.
-SimOTA, distillation, repopt, the office graphs (ROADMAP Queue 1,
-remaining training variants) and per-block rematerialization raise.
+
+The training recipes of the JAX Trainer (engine.py:52-76, 137-204): any
+iou_type of the config's head (Wise-IoU's running mean is state, saved
+and resumed) and use_dfl; --simota (or cfg.model.target 'SimOTA') trains
+the SimOTA loss of a Head_simota graph; --distill distills from the
+checkpoint at --teacher-model-path (its meta.graph and its EMA, the
+weights an eval reads); training_mode='repopt' trains the plain graph
+under gradient masks from cfg.model.scales (solver/repopt.py), the
+kernels re-initialized from the scales unless --pretrained. The office
+graphs (ROADMAP Queue 1, remaining training variants) and per-block
+rematerialization raise.
 """
 from __future__ import annotations
 
@@ -37,11 +46,12 @@ from mafyolo_tpu_torch.data.loader import create_dataloader
 from mafyolo_tpu_torch.models import build_model
 from mafyolo_tpu_torch.parallel import ddp
 from mafyolo_tpu_torch.solver.build import build_lr_fn, warmup_schedule
+from mafyolo_tpu_torch.solver.repopt import load_scales, repopt_prepare
 from mafyolo_tpu_torch.utils.bridge import (state_dict_to_train_variables,
                                             train_variables_to_state_dict)
-from mafyolo_tpu_torch.utils.checkpoint import (find_latest_checkpoint, load_checkpoint,
-                                                load_shape_matched, save_checkpoint,
-                                                strip_checkpoint)
+from mafyolo_tpu_torch.utils.checkpoint import (eval_variables, find_latest_checkpoint,
+                                                load_checkpoint, load_shape_matched,
+                                                save_checkpoint, strip_checkpoint)
 from mafyolo_tpu_torch.utils.events import LOGGER
 
 
@@ -112,12 +122,6 @@ class Trainer:
 
         if cfg.model.get("build_type", "yaml") != "yaml":
             _unported("the office graphs (build_type != 'yaml')")
-        if cfg.get("training_mode", "repvgg") == "repopt":
-            _unported("training_mode='repopt'")
-        if getattr(args, "simota", False) or cfg.model.get("target") == "SimOTA":
-            _unported("the SimOTA loss")
-        if getattr(args, "distill", False):
-            _unported("distillation")
         if getattr(args, "remat", False):
             raise NotImplementedError(
                 "per-block rematerialization is not ported: N trains at bs32@640 "
@@ -127,10 +131,13 @@ class Trainer:
         head = cfg.model.head
         self.dtype = torch.bfloat16 if getattr(args, "bf16", True) and \
             self.device.type != "cpu" else torch.float32
+        # repopt trains the plain (RealVGG) graph under gradient masks
+        self.training_mode = cfg.get("training_mode", "repvgg")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(args.seed)
             model = build_model(self.graph, nc=self.nc, reg_max=head.reg_max,
-                                strides=tuple(head.strides))
+                                strides=tuple(head.strides),
+                                plain_rep=self.training_mode == "repopt")
 
         hyp = dict(cfg.data_aug)
         self.device_aug = None
@@ -164,6 +171,20 @@ class Trainer:
             matched = load_shape_matched(params, ckpt["model"]["params"])
             model.load_state_dict(train_variables_to_state_dict({"params": matched}),
                                   strict=False)
+        self.grad_mask = None
+        if self.training_mode == "repopt":
+            # scales from the hyper-search checkpoint; reinit only when
+            # training from scratch (engine.py:137-160)
+            scales_path = cfg.model.get("scales")
+            if not scales_path:
+                raise ValueError("training_mode='repopt' needs cfg.model.scales "
+                                 "(hyper-search checkpoint with LinearAddBlock scales)")
+            scales = load_scales(scales_path)
+            masks = repopt_prepare(model, scales, np.random.default_rng(args.seed),
+                                   reinit=not getattr(args, "pretrained", None))
+            self.grad_mask = {n: m.to(self.device) for n, m in masks.items()}
+            LOGGER.info(f"repopt: {len(scales)} plain RepVGG convs "
+                        f"re-initialized and grad-masked")
         model = model.to(self.device).to(memory_format=torch.channels_last)
         if self.world > 1:
             ddp.broadcast_state(model)
@@ -178,6 +199,12 @@ class Trainer:
             if path:
                 self._resume(load_checkpoint(path))
                 LOGGER.info(f"resumed from {path} at epoch {self.start_epoch}")
+        self.loss_type = "simota" if (getattr(args, "simota", False)
+                                      or cfg.model.get("target") == "SimOTA") else "tal"
+        self.teacher = None
+        if getattr(args, "distill", False):
+            self.teacher = self._teacher(args.teacher_model_path)
+            self.loss_type = "distill"
         self.train_step = self._make_train_step()
 
         self.warmup_epoch_loss = int(getattr(head, "atss_warmup_epoch", 3))
@@ -217,12 +244,28 @@ class Trainer:
         loader.drop_last = loader.drop_last or self.world > 1
         return loader, dataset
 
+    def _teacher(self, path: str) -> torch.nn.Module:
+        """The distillation teacher: the train form of the checkpoint's
+        meta.graph (else this run's graph) holding its eval weights (the
+        EMA if any), in eval mode on this device (engine.py:183-195)."""
+        head = self.cfg.model.head
+        ckpt = load_checkpoint(path)
+        graph = ckpt.get("meta", {}).get("graph", self.graph)
+        teacher = build_model(graph, nc=self.nc, reg_max=head.reg_max,
+                              strides=tuple(head.strides))
+        teacher.load_state_dict(train_variables_to_state_dict(eval_variables(ckpt)))
+        return teacher.to(self.device).to(memory_format=torch.channels_last).eval()
+
     def _make_train_step(self):
         head = self.cfg.model.head
         return make_train_step(
             num_classes=self.nc, img_size=self.img_size, strides=tuple(head.strides),
-            reg_max=head.reg_max, iou_type=head.iou_type, dtype=self.dtype,
-            device_aug=self.device_aug, seed=self.args.seed)
+            reg_max=head.reg_max, use_dfl=head.use_dfl, iou_type=head.iou_type,
+            dtype=self.dtype, device_aug=self.device_aug, seed=self.args.seed,
+            loss_type=self.loss_type, teacher=self.teacher, max_epoch=self.epochs,
+            distill_feat=bool(getattr(self.args, "distill_feat", False)),
+            temperature=float(getattr(self.args, "temperature", 20.0)),
+            grad_mask=self.grad_mask)
 
     # ---------- state <-> checkpoint ----------
 
@@ -241,9 +284,8 @@ class Trainer:
             "ema": state_dict_to_train_variables(self.state.ema.state_dict()),
             "opt": state_dict_to_train_variables(self._momentum())["params"],
             "updates": int(self.state.updates),
-            # Wise-IoU's running mean: the port trains giou only, so it stays
-            # at the JAX state's initial value
-            "wiou_mean": 1.0,
+            # Wise-IoU's running mean (1.0 unless iou_type is 'wiou')
+            "wiou_mean": float(self.state.wiou_mean),
             "epoch": epoch,
             "meta": {"graph": self.graph, "nc": self.nc, "img_size": self.img_size,
                      "reg_max": int(head.reg_max), "strides": list(head.strides)},
@@ -251,8 +293,8 @@ class Trainer:
 
     @torch.no_grad()
     def _resume(self, ckpt: Dict):
-        """Model, EMA (if the checkpoint has one), momentum, updates and the
-        epoch to start from; wiou_mean is dropped (giou only)."""
+        """Model, EMA (if the checkpoint has one), momentum, updates,
+        Wise-IoU's running mean and the epoch to start from."""
         model, state = self.state.model, self.state
         model.load_state_dict(train_variables_to_state_dict(ckpt["model"]))
         if ckpt.get("ema"):
@@ -264,6 +306,8 @@ class Trainer:
                 state.optimizer.state[p]["momentum_buffer"] = \
                     torch.empty_like(p).copy_(mom[n])
         state.updates = int(ckpt.get("updates", 0))
+        state.wiou_mean = torch.tensor(float(ckpt.get("wiou_mean", 1.0)),
+                                       dtype=torch.float32, device=self.device)
         self.start_epoch = int(ckpt.get("epoch", -1)) + 1
 
     def _log_scalar(self, key: str, value, step: int):
@@ -390,7 +434,8 @@ class Trainer:
         imgs, targets = batch
         return self.train_step(self.state, imgs, targets, sched["lr_bnw"],
                                sched["lr_weight"], sched["lr_bias"], sched["momentum"],
-                               do_apply, epoch < self.warmup_epoch_loss, mark=mark)
+                               do_apply, epoch < self.warmup_epoch_loss, epoch_num=epoch,
+                               mark=mark)
 
     # ---------- eval + checkpoint ----------
 

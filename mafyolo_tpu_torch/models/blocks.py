@@ -315,10 +315,12 @@ def _convish(deploy: bool, quant: bool = False, calibrate: bool = False):
 class RepVGGBlock(nn.Module):
     """RepVGG block (blocks.py:511-550). Deploy: relu(conv3x3 + bias).
     Train: relu(dense3x3_bn(x) + pw1x1_bn(x) [+ idbn(x) if cin == cout and
-    stride == 1])."""
+    stride == 1]). plain=True keeps the dense branch only: the RealVGG block
+    that training_mode='repopt' trains, its structural prior in the
+    gradient masks instead (solver/repopt.py)."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1, deploy: bool = False,
-                 quant: bool = False, calibrate: bool = False):
+                 plain: bool = False, quant: bool = False, calibrate: bool = False):
         super().__init__()
         self.deploy = deploy
         if deploy:
@@ -326,6 +328,8 @@ class RepVGGBlock(nn.Module):
                                  calibrate=calibrate)
             return
         self.dense = ConvBN(cin, cout, 3, stride)
+        if plain:
+            return
         self.pw = ConvBN(cin, cout, 1, stride, pad=0)
         if cin == cout and stride == 1:
             self.idbn = BatchNorm(cin)
@@ -333,22 +337,30 @@ class RepVGGBlock(nn.Module):
     def forward(self, x):
         if self.deploy:
             return self.fused(x)
-        y = self.dense(x) + self.pw(x)
+        y = self.dense(x)
+        if hasattr(self, "pw"):
+            y = y + self.pw(x)
         if hasattr(self, "idbn"):
             y = y + self.idbn(x)
         return F.relu(y)
 
 
-class ConvWrapper(nn.Module):
-    """conv-BN-SiLU, default k3 (the MAFPN down-branch convs)."""
+class Conv(nn.Module):
+    """conv-BN-act, default 1x1: SiLU for the Conv row, ReLU for SimConv,
+    3x3 SiLU for ConvWrapper, the MAFPN down-branch convs (blocks.py:424-478)."""
 
-    def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
-                 deploy: bool = False, quant: bool = False, calibrate: bool = False):
+    def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
+                 deploy: bool = False, act: str = "silu", quant: bool = False,
+                 calibrate: bool = False):
         super().__init__()
-        self.block = _convish(deploy, quant, calibrate)(cin, cout, k, stride, act="silu")
+        self.block = _convish(deploy, quant, calibrate)(cin, cout, k, stride, act=act)
 
     def forward(self, x):
         return self.block(x)
+
+
+SimConv = functools.partial(Conv, act="relu")
+ConvWrapper = functools.partial(Conv, k=3)
 
 
 def max_pool_same(x, k: int, stride: int = 1):
@@ -379,15 +391,16 @@ class SPPF(nn.Module):
 
 
 class MPRep(nn.Module):
-    """Dual-path downsample: maxpool2 + 1x1 || stride-2 RepVGG, concat."""
+    """Dual-path downsample: maxpool2 + 1x1 || stride-2 RepVGG, concat;
+    plain=True takes the RealVGG form of the RepVGG branch."""
 
-    def __init__(self, cin: int, cout: int, deploy: bool = False, quant: bool = False,
-                 calibrate: bool = False):
+    def __init__(self, cin: int, cout: int, deploy: bool = False, plain: bool = False,
+                 quant: bool = False, calibrate: bool = False):
         super().__init__()
         c_ = cout // 2
         self.pool_proj = _convish(deploy, quant, calibrate)(cin, c_, 1, act="silu")
-        self.rep_down = RepVGGBlock(cin, c_, stride=2, deploy=deploy, quant=quant,
-                                    calibrate=calibrate)
+        self.rep_down = RepVGGBlock(cin, c_, stride=2, deploy=deploy, plain=plain,
+                                    quant=quant, calibrate=calibrate)
         # the pool branch's input quantizer (blocks.py:566-567)
         self.pool_q = QuantAct(calibrate) if quant and deploy else nn.Identity()
 
@@ -517,6 +530,37 @@ class Head_DepthUni(nn.Module):
         if self.deploy:
             return x, torch.sigmoid(cls), reg
         return x, torch.sigmoid(cls.float()), reg.float()
+
+
+class Head_Simota(nn.Module):
+    """The YOLOX-style coupled head of the SimOTA path (blocks.py:801-842):
+    stem 1x1 -> cls 3x3 -> cls_pred (logits); reg 3x3 -> reg_pred (4 *
+    (reg_max + 1) channels: xy offset, log wh) and obj_pred (1, logits).
+    cls_pred and obj_pred biases start at the 1e-2 prior, reg_pred's at 0.
+    Returns the raw (cls, reg, obj) maps in f32; the sigmoids live in the
+    loss (models/losses/simota.py) and in detect.py:decode_simota_eval."""
+
+    def __init__(self, cin: int, cout: int, reg_max: int = 0, nc: int = 80,
+                 deploy: bool = False, quant: bool = False, calibrate: bool = False):
+        super().__init__()
+        cv = _convish(deploy, quant, calibrate)
+        self.stem = cv(cin, cout, 1, act="silu")
+        self.cls_conv = cv(cout, cout, 3, act="silu")
+        self.cls_pred = nn.Conv2d(cout, nc, 1)
+        self.reg_conv = cv(cout, cout, 3, act="silu")
+        self.reg_pred = nn.Conv2d(cout, 4 * (reg_max + 1), 1)
+        self.obj_pred = nn.Conv2d(cout, 1, 1)
+        if not deploy:
+            prior_bias = -math.log((1 - 1e-2) / 1e-2)
+            nn.init.constant_(self.cls_pred.bias, prior_bias)
+            nn.init.constant_(self.obj_pred.bias, prior_bias)
+            nn.init.zeros_(self.reg_pred.bias)
+
+    def forward(self, x):
+        x = self.stem(x)
+        cls = self.cls_pred(self.cls_conv(x))
+        reg_f = self.reg_conv(x)
+        return cls.float(), self.reg_pred(reg_f).float(), self.obj_pred(reg_f).float()
 
 
 def upsample2x(x):

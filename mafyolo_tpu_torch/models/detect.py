@@ -74,7 +74,13 @@ def bbox2dist(anchor_points, bbox, reg_max: int):
 
 
 def dfl_decode(reg_distri, reg_max: int):
-    """[..., 4*(reg_max+1)] -> ltrb [..., 4] via softmax expectation (f32)."""
+    """[..., 4*(reg_max+1)] -> ltrb [..., 4] via softmax expectation (f32).
+    Other channel counts raise TypeError, as JAX's reshape does: the
+    Evaler's decode on a Head_simota graph's (cls, reg, obj) maps fails
+    here in both packages."""
+    if reg_distri.shape[-1] != 4 * (reg_max + 1):
+        raise TypeError(f"cannot reshape {reg_distri.shape[-1]} regression channels into "
+                        f"4 x {reg_max + 1} DFL bins")
     shape = reg_distri.shape[:-1]
     logits = reg_distri.reshape(*shape, 4, reg_max + 1).float()
     proj = torch.arange(reg_max + 1, dtype=torch.float32,
@@ -82,12 +88,34 @@ def dfl_decode(reg_distri, reg_max: int):
     return torch.softmax(logits, -1) @ proj
 
 
-def decode_eval(head_outs, strides, reg_max: int = 16):
-    """Eval decode -> [B, A, 4+1+nc]: xywh image-scale boxes, obj==1, cls."""
+def decode_simota_eval(head_outs, strides):
+    """SimOTA eval decode (detect.py:98-116): per-level raw (cls, reg, obj)
+    NHWC -> [B, A, 5+nc]: xy = (xy + grid) * stride, wh = exp(wh) * stride,
+    obj and cls sigmoided; the layout (xywh, obj, cls) that ops/nms.py:
+    batched_nms takes."""
+    outs = []
+    for (cls, reg, obj), s in zip(head_outs, strides):
+        b, h, w, _ = cls.shape
+        gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=cls.device),
+                                torch.arange(w, dtype=torch.float32, device=cls.device),
+                                indexing="ij")
+        grid = torch.stack([gx, gy], -1).reshape(1, h * w, 2)
+        reg = reg.reshape(b, h * w, -1).float()
+        xy = (reg[..., :2] + grid) * s
+        wh = torch.exp(reg[..., 2:4]) * s
+        obj = torch.sigmoid(obj.reshape(b, h * w, 1).float())
+        cls = torch.sigmoid(cls.reshape(b, h * w, -1).float())
+        outs.append(torch.cat([xy, wh, obj, cls], -1))
+    return torch.cat(outs, 1)
+
+
+def decode_eval(head_outs, strides, reg_max: int = 16, use_dfl: bool = True):
+    """Eval decode -> [B, A, 4+1+nc]: xywh image-scale boxes, obj==1, cls.
+    use_dfl=False reads the reg channels as ltrb distances themselves."""
     hw_list, cls_scores, reg_distri = flatten_train_outputs(head_outs)
     points, stride_col = anchor_points_for(hw_list, strides,
                                            device=cls_scores.device)
-    boxes = dist2bbox(dfl_decode(reg_distri, reg_max), points,
-                      box_format="xywh") * stride_col
+    ltrb = dfl_decode(reg_distri, reg_max) if use_dfl else reg_distri
+    boxes = dist2bbox(ltrb, points, box_format="xywh") * stride_col
     ones = torch.ones_like(boxes[..., :1])
     return torch.cat([boxes, ones, cls_scores.to(boxes.dtype)], -1)

@@ -1,15 +1,18 @@
 """Graph-spec parser and the save-list graph executor (train and deploy forms).
 
-`LayerSpec`, `make_divisible` and `parse_graph` are a copy of
-mafyolo_tpu/models/graph.py:28-159, cut to the row kinds the MAF-YOLO graphs
-use; tests/test_torch_graph.py pins the parse equal to the JAX one for N, S
-and M. The executor walks the layers in order and keeps the outputs that later
+`LayerSpec`, `make_divisible`, `parse_graph` and `graph_from_yaml` are a
+copy of mafyolo_tpu/models/graph.py:28-166, cut to the row kinds of the
+MAF-YOLO graphs and of the reference-format yaml graphs that SimOTA and
+repopt users bring (Conv, SimConv, Head_simota); the office rows are not
+ported. tests/test_torch_graph.py pins the parse equal to the JAX one for
+N, S, M and such a yaml. The executor walks the layers in order and keeps the outputs that later
 rows read (the `save` set), like the JAX GraphNet.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -65,6 +68,10 @@ def parse_graph(graph: dict, nc: int, ch_in: int = 3):
             c1 = cin_of(frm[0], i)
             c2 = make_divisible(args[0] * gw, 4)
             kw = dict(cin=c1, cout=c2, stride=args[2] if len(args) > 2 else 1)
+        elif kind in ("Conv", "SimConv"):
+            c2 = make_divisible(args[0] * gw, 4)
+            kw = dict(cout=c2, k=args[1] if len(args) > 1 else 1,
+                      stride=args[2] if len(args) > 2 else 1)
         elif kind == "SPPF":
             c1 = cin_of(frm[0], i)
             c2 = make_divisible(args[0] * gw, 4)
@@ -92,6 +99,11 @@ def parse_graph(graph: dict, nc: int, ch_in: int = 3):
             c1 = cin_of(frm[0], i)
             c2 = make_divisible(args[0] * gw, 8)
             kw = dict(cin=c1, cout=c2, reg_max=int(args[1]), kersize=int(args[2]), nc=nc)
+        elif kind == "Head_simota":
+            c1 = cin_of(frm[0], i)
+            c2 = make_divisible(args[0] * gw, 8)
+            kw = dict(cin=c1, cout=c2,
+                      reg_max=int(args[1]) if len(args) > 1 else 0, nc=nc)
         elif kind == "Out":
             out_frm = tuple(x % i for x in frm)
             c2 = ch[-1]
@@ -109,13 +121,28 @@ def parse_graph(graph: dict, nc: int, ch_in: int = 3):
     return tuple(specs), frozenset(save), out_frm
 
 
+def graph_from_yaml(path: str) -> dict:
+    """A reference-format yaml graph (configs/yaml/MAF-YOLO-*.yaml) as a
+    graph dict. Needs PyYAML, which is imported here only."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(f"reading the yaml graph {path!r} needs PyYAML, which is not "
+                          "installed: pass the graph as a dict instead") from e
+    with open(path, encoding="ascii", errors="ignore") as fh:
+        return yaml.safe_load(fh)
+
+
 _BLOCK_CTORS = {
     "RepVGGBlock": B.RepVGGBlock,
     "RepHDW": B.RepHDW,
     "MPRep": B.MPRep,
     "SPPF": B.SPPF,
+    "Conv": B.Conv,
+    "SimConv": B.SimConv,
     "ConvWrapper": B.ConvWrapper,
     "Head_DepthUni": B.Head_DepthUni,
+    "Head_simota": B.Head_Simota,
 }
 
 
@@ -133,11 +160,15 @@ class GraphNet(nn.Module):
     quant (deploy only) builds the blocks' quantizers (models/blocks.py),
     in calib mode with calibrate, and the neck upsamples as Upsample2x
     modules with an output quantizer (graph.py:272-273 of the JAX package).
+    plain_rep (train form) builds RepVGGBlock and MPRep in their plain
+    RealVGG form, the graph that training_mode='repopt' trains. A
+    Head_simota level gives the raw (cls, reg, obj) maps in place of
+    (feat, cls, reg).
     """
 
     def __init__(self, specs, save, out_frm, deploy: bool = False,
                  skip_until: int = -1, skip_stem: bool = False,
-                 quant: bool = False, calibrate: bool = False):
+                 quant: bool = False, calibrate: bool = False, plain_rep: bool = False):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
         self.skip_until = max(skip_until, 0 if skip_stem else -1)
@@ -149,9 +180,11 @@ class GraphNet(nn.Module):
             if ctor is None:
                 continue
             kw = spec.kw
-            if "cin" not in kw:   # ConvWrapper rows infer cin from their source
+            if "cin" not in kw:   # Conv rows infer cin from their source
                 src = spec.frm[0]
                 kw["cin"] = specs[src if src >= 0 else spec.idx + src].cout
+            if plain_rep and not deploy and spec.kind in ("RepVGGBlock", "MPRep"):
+                kw["plain"] = True
             self.add_module(f"layer{spec.idx}", ctor(deploy=deploy, **kw, **q))
 
     def forward(self, x, skip_until: Optional[int] = None):
@@ -187,13 +220,13 @@ class MAFYolo(nn.Module):
     def __init__(self, specs, save, out_frm, nc: int = 80, reg_max: int = 16,
                  strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
                  skip_until: int = -1, skip_stem: bool = False,
-                 quant: bool = False, calibrate: bool = False):
+                 quant: bool = False, calibrate: bool = False, plain_rep: bool = False):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
         self.nc, self.reg_max, self.strides = nc, reg_max, strides
         self.net = GraphNet(specs, save, out_frm, deploy=deploy,
                             skip_until=skip_until, skip_stem=skip_stem,
-                            quant=quant, calibrate=calibrate)
+                            quant=quant, calibrate=calibrate, plain_rep=plain_rep)
 
     def forward(self, x, skip_until: Optional[int] = None):
         return self.net(x, skip_until)
@@ -202,18 +235,27 @@ class MAFYolo(nn.Module):
 def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: int = 16,
                 strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
                 skip_until: int = -1, skip_stem: bool = False,
-                quant: bool = False, calibrate: bool = False) -> MAFYolo:
+                quant: bool = False, calibrate: bool = False,
+                plain_rep: bool = False) -> MAFYolo:
     """Build a MAFYolo (train form, or deploy form with deploy=True) from a
-    zoo name or a graph dict. quant=True (deploy only) adds the INT8
+    zoo name, a graph dict or a reference-format yaml path; plain_rep=True
+    builds the train form's RepVGG blocks plain (repopt). quant=True (deploy only) adds the INT8
     quantizers, in fake-quant mode or, with calibrate, in calib mode (the
     JAX build_model's quant/calibrate); models/blocks.set_quant_mode
     switches them later. A quant graph runs all its layers: the front-end
     and stem kernels are for the float graph."""
     if isinstance(graph, str):
-        graph = MODEL_ZOO[graph.lower()]
+        if graph.lower() in MODEL_ZOO:
+            graph = MODEL_ZOO[graph.lower()]
+        elif graph.endswith((".yaml", ".yml")) or os.path.isfile(graph):
+            graph = graph_from_yaml(graph)
+        else:
+            raise KeyError(f"{graph!r} is neither a yaml path nor a model of the zoo "
+                           f"({', '.join(sorted(MODEL_ZOO))})")
     if quant and not deploy:
         raise ValueError("quant=True needs the deploy form (deploy=True)")
     specs, save, out_frm = parse_graph(graph, nc=nc)
     return MAFYolo(specs, save, out_frm, nc=nc, reg_max=reg_max,
                    strides=strides, deploy=deploy, skip_until=skip_until,
-                   skip_stem=skip_stem, quant=quant, calibrate=calibrate)
+                   skip_stem=skip_stem, quant=quant, calibrate=calibrate,
+                   plain_rep=plain_rep)

@@ -1,8 +1,10 @@
 """Re-parameterization as numpy folds: train-form variables -> deploy tree.
 
 A copy of the framework-free folds of mafyolo_tpu/models/reparam.py:26-262
-for the block kinds of the MAF graphs (fold_stem_s2d is left out: the port
-has no s2d stem). The input is the JAX tree layout, {'params', 'batch_stats'}
+for the block kinds of the MAF graphs and the reference-format yaml rows
+Conv, SimConv and Head_simota, plain (repopt) RepVGG blocks included
+(fold_stem_s2d is left out: the port has no s2d stem; the office blocks are
+not ported). The input is the JAX tree layout, {'params', 'batch_stats'}
 of numpy arrays with HWIO kernels (utils/bridge.py:state_dict_to_train_variables
 makes it from a train-form state_dict); the output is the folded deploy tree
 that utils/bridge.py:folded_to_state_dict loads. tests/test_torch_train_model.py
@@ -71,8 +73,11 @@ def _dilated_to_dense(kernel: np.ndarray, r: int) -> np.ndarray:
 
 
 def fold_repvgg(p, s, cin: int, cout: int, stride: int, groups: int = 1):
-    """RepVGGBlock: dense + pw (+ identity BN) -> one 3x3 conv."""
+    """RepVGGBlock: dense + pw (+ identity BN) -> one 3x3 conv. A plain
+    (RealVGG, repopt) block has the dense branch only: its conv + BN fuse."""
     k3, b3 = fuse_conv_bn(p["dense"]["conv"], p["dense"]["bn"], s["dense"]["bn"])
+    if "pw" not in p:
+        return {"fused": {"conv": {"kernel": k3, "bias": b3}}}
     k1, b1 = fuse_conv_bn(p["pw"]["conv"], p["pw"]["bn"], s["pw"]["bn"])
     k = k3 + _pad_kernel_center(k1, 3)
     b = b3 + b1
@@ -113,7 +118,7 @@ def _fold_dbu(p, s, kw):
 
 
 def _fold_block(kind: str, kw: Dict, p, s):
-    if kind == "ConvWrapper":
+    if kind in ("Conv", "ConvWrapper", "SimConv"):
         return {"block": _fold_cbn(p["block"], s["block"])}
     if kind == "RepVGGBlock":
         return fold_repvgg(p, s, kw["cin"], kw["cout"], kw["stride"])
@@ -130,6 +135,11 @@ def _fold_block(kind: str, kw: Dict, p, s):
                "cv_out": _fold_cbn(p["cv_out"], s["cv_out"])}
         for i in range(kw["depth"]):
             out[f"m{i}"] = _fold_dbu(p[f"m{i}"], s[f"m{i}"], kw)
+        return out
+    if kind == "Head_simota":
+        out = {name: _fold_cbn(p[name], s[name]) for name in ("stem", "cls_conv", "reg_conv")}
+        for pred in ("cls_pred", "reg_pred", "obj_pred"):
+            out[pred] = {"kernel": _np(p[pred]["kernel"]), "bias": _np(p[pred]["bias"])}
         return out
     if kind == "Head_DepthUni":
         out = {"stem": _fold_cbn(p["stem"], s["stem"])}

@@ -85,14 +85,18 @@ def _blocked_greedy_select(cand_boxes, off_boxes, scores, cls_idx,
 
 
 def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
-                     conf_thres: float = 0.03, iou_thres: float = 0.65,
-                     max_det: int = 300, pre_nms_topk: int = 2000,
-                     compact_k: int = 512, multi_label: bool = True):
+                     use_dfl: bool = True, conf_thres: float = 0.03,
+                     iou_thres: float = 0.65, max_det: int = 300,
+                     pre_nms_topk: int = 2000, compact_k: int = 512,
+                     multi_label: bool = True, agnostic: bool = False):
     """Per-level NHWC head outputs -> dict of padded detections:
     boxes [B,max_det,4] xyxy px, scores [B,max_det], classes [B,max_det]
     int64, valid [B,max_det] bool, score-descending per image. With
     multi_label=False an anchor competes only with its best class (all its
     classes of that score), as the JAX package's inference CLI asks.
+    use_dfl=False reads the reg channels as ltrb distances themselves (a
+    head of reg_max 0); agnostic=True suppresses across classes (no class
+    offset on the boxes).
 
     Fast path: threshold compaction, exact while every image has <= compact_k
     above-threshold pairs and no anchor has more than two. Otherwise the whole
@@ -127,12 +131,14 @@ def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
 
     def decode_boxes(reg_rows, anchor_idx):
         """DFL-decode gathered reg rows at their anchors -> xyxy image px."""
-        ltrb = dfl_decode(reg_rows, reg_max)
+        ltrb = dfl_decode(reg_rows, reg_max) if use_dfl else reg_rows.float()
         pts, sc = anchor_point_at(anchor_idx)
         return torch.cat([(pts - ltrb[..., :2]) * sc,
                           (pts + ltrb[..., 2:]) * sc], -1)
 
     def offset(boxes, cls_idx):
+        if agnostic:
+            return boxes
         return boxes + cls_idx[..., None].to(boxes.dtype) * MAX_WH
 
     # ---- fast path: compaction + top-2 classes of each surviving anchor

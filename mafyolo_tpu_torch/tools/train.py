@@ -10,8 +10,15 @@ best_ckpt.npck and, in the stop-aug tail, best_stop_aug_ckpt.npck, in the
 JAX package's checkpoint layout. Reading the dataset yaml needs PyYAML,
 and decoding image files needs OpenCV. --quant --calib --pretrained ckpt
 runs INT8 PTQ calibration and its eval through tools/quantize.py, as the
-JAX CLI does; --quant or --calib alone (QAT through the Trainer), --simota
-and --distill are not ported and raise.
+JAX CLI does; --quant or --calib alone (QAT through the Trainer) raises.
+
+The recipes: the config's head.iou_type (giou, diou, ciou, siou, iou or
+wiou) and head.use_dfl; --simota trains the SimOTA loss (a graph with
+Head_simota heads, from a yaml path or a dict in cfg.model.graph);
+--distill --teacher-model-path ckpt distills from that checkpoint
+(--distill-feat adds the feature term, --temperature its T); a config with
+training_mode='repopt' and model.scales (a pickle of scale tuples or a
+hyper-search .pt) trains the plain graph under RepOptimizer's masks.
 
 Data parallel (parallel/ddp.py), --batch-size the global batch:
 --device-count N trains on the first N local devices, N ranks spawned here
@@ -57,12 +64,14 @@ def get_args_parser():
     p.add_argument("--wandb", action="store_true",
                    help="mirror scalars to wandb (if installed)")
     p.add_argument("--wandb-project", default="mafyolo-tpu")
-    p.add_argument("--simota", action="store_true", help="SimOTA loss (not ported)")
+    p.add_argument("--simota", action="store_true", help="use SimOTA loss")
     p.add_argument("--distill", action="store_true",
-                   help="knowledge distillation (not ported)")
+                   help="knowledge distillation from --teacher-model-path")
     p.add_argument("--teacher-model-path", default=None)
-    p.add_argument("--distill-feat", action="store_true")
-    p.add_argument("--temperature", type=float, default=20.0)
+    p.add_argument("--distill-feat", action="store_true",
+                   help="also distill the heads' feature maps")
+    p.add_argument("--temperature", type=float, default=20.0,
+                   help="the distillation temperature")
     p.add_argument("--device-aug", action="store_true",
                    help="affine/HSV/flip/mosaic/mixup on the device; the host "
                         "loader only letterboxes")

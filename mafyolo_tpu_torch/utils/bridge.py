@@ -150,11 +150,12 @@ def random_folded_variables(specs, seed: int, weight_gain: float = 1.0) -> Dict:
     return {"params": state_dict_to_train_variables(sd)["params"]}
 
 
-def random_train_variables(specs, seed: int) -> Dict:
+def random_train_variables(specs, seed: int, plain_rep: bool = False) -> Dict:
     """A train-form {'params', 'batch_stats'} tree for `specs` with every leaf
     nonzero: conv weights as in random_folded_variables, the cls/reg preds
     included (the JAX init zeroes them, which zeroes every gradient upstream
     of the heads on a first step), BN gamma U(0.5, 1.5), beta and running
-    mean U(+-0.2), running var U(0.5, 2)."""
-    return state_dict_to_train_variables(
-        _random_state_dict(GraphNet(specs, frozenset(), (), deploy=False), seed, 1.0))
+    mean U(+-0.2), running var U(0.5, 2). plain_rep: the tree of the plain
+    (repopt) train form."""
+    net = GraphNet(specs, frozenset(), (), deploy=False, plain_rep=plain_rep)
+    return state_dict_to_train_variables(_random_state_dict(net, seed, 1.0))

@@ -2,8 +2,9 @@
 
 A `.npck` checkpoint is the JAX package's pickled dict of numpy trees:
 {model: {params, batch_stats}, ema: {params, batch_stats}, opt: the SGD
-momentum as a params tree, updates, wiou_mean, epoch, meta: {graph, nc,
-...}, folded?}, under the flax names (utils/bridge.py maps them to the
+momentum as a params tree, updates, wiou_mean (Wise-IoU's running mean, a
+float: 1.0 unless the run trains iou_type 'wiou'), epoch, meta: {graph,
+nc, ...}, folded?}, under the flax names (utils/bridge.py maps them to the
 port's state_dict). Either package reads what the other wrote.
 `strip_checkpoint` promotes the EMA to the model, drops the optimizer state
 and casts to fp16, as the JAX one does. A calibrated INT8 checkpoint

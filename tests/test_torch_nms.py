@@ -215,3 +215,37 @@ def test_batched_nms_matches_jax(a, nc, multi_label, agnostic):
     np.testing.assert_array_equal(got["classes"], want["classes"])
     np.testing.assert_allclose(got["scores"], want["scores"], rtol=0, atol=1e-4)
     np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("case,kw", [
+    ("no_dfl", dict(use_dfl=False)),
+    ("agnostic", dict(agnostic=True)),
+    ("no_dfl_agnostic_overflow", dict(use_dfl=False, agnostic=True)),
+])
+def test_fused_decode_nms_options_match_jax(case, kw):
+    """use_dfl=False (4 raw ltrb channels in grid units, reg_max 0) and
+    agnostic=True (no class offset: boxes of other classes suppress too)
+    against JAX's fused_decode_nms with the same options, the last case
+    through the dense path."""
+    hot = 0.35 if "overflow" in case else 0.05
+    outs = _head_outs(9, hot=hot)
+    if not kw.get("use_dfl", True):
+        rng = np.random.default_rng(10)
+        outs = [(f, c, rng.uniform(0.3, 4.0, r.shape[:-1] + (4,)).astype(np.float32))
+                for f, c, r in outs]
+    nms_kw = dict(strides=(8, 16, 32), conf_thres=0.03, iou_thres=0.65, max_det=100,
+                  reg_max=0 if not kw.get("use_dfl", True) else 16, **kw)
+    want = jax_fused([tuple(jnp.asarray(t) for t in o) for o in outs], **nms_kw)
+    got = fused_decode_nms([tuple(torch.from_numpy(t) for t in o) for o in outs], **nms_kw)
+    v = np.asarray(want["valid"])
+    assert v.sum(1).min() > 10
+    np.testing.assert_array_equal(got["valid"].numpy(), v)
+    np.testing.assert_array_equal(got["classes"].numpy()[v], np.asarray(want["classes"])[v])
+    np.testing.assert_allclose(got["scores"].numpy()[v], np.asarray(want["scores"])[v],
+                               atol=1e-4)
+    np.testing.assert_allclose(got["boxes"].numpy()[v], np.asarray(want["boxes"])[v],
+                               atol=1e-4, rtol=1e-5)
+    if kw.get("agnostic"):
+        offset = fused_decode_nms([tuple(torch.from_numpy(t) for t in o) for o in outs],
+                                  **{**nms_kw, "agnostic": False})
+        assert not torch.equal(offset["boxes"], got["boxes"])

@@ -249,17 +249,26 @@ def test_checkpoint_helpers_match_jax(run, tmp_path):
 
 
 def test_unported_options_raise(run):
-    for kw, cfg_key in (({"simota": True}, None), ({"distill": True}, None),
-                        ({}, ("training_mode", "repopt")),
-                        ({}, ("build_type", "office")), ({"remat": True}, None)):
+    """Only the office graphs (their ROADMAP item named) and per-block
+    rematerialization raise NotImplementedError; SimOTA, distillation and
+    repopt are ported, and without their inputs (a teacher checkpoint,
+    cfg.model.scales) they fail as JAX's Trainer does."""
+    for kw, cfg_key in ((({}, ("build_type", "office"))), ({"remat": True}, None)):
         _, cfg = _configs()
-        if cfg_key == ("training_mode", "repopt"):
-            cfg.training_mode = "repopt"
-        elif cfg_key:
+        if cfg_key:
             cfg.model.build_type = "office"
-        match = "rematerialization" if kw.get("remat") else "remaining training variants"
+        match = "rematerialization" if kw.get("remat") else \
+            r"^the office graphs \(build_type != 'yaml'\) is not ported yet " \
+            r"\(ROADMAP Queue 1, remaining training variants\)$"
         with pytest.raises(NotImplementedError, match=match):
             Trainer(_args(save_dir=str(run.root / "x"), **kw), cfg, run.data, device="cpu")
+    _, cfg = _configs()
+    cfg.training_mode = "repopt"
+    with pytest.raises(ValueError, match="cfg.model.scales"):
+        Trainer(_args(save_dir=str(run.root / "x")), cfg, run.data, device="cpu")
+    with pytest.raises(AttributeError):     # no --teacher-model-path: as JAX's load_checkpoint
+        Trainer(_args(save_dir=str(run.root / "x"), distill=True, teacher_model_path=None),
+                _configs()[1], run.data, device="cpu")
     assert torch.device("cuda") == torch.device(
         Trainer.__init__.__kwdefaults__["device"])
 
@@ -273,3 +282,128 @@ def test_profile_traces_steps_2_to_7(run):
     tr.train_one_epoch(0)
     assert (run.root / "profiled" / "profile" / "trace.json").stat().st_size > 0
     assert tr.state.updates > 0
+
+
+# ---- the training recipes through the Trainer (CPU epochs of the same run)
+
+
+def _losses(tr, epoch=0, after=None):
+    """Run epoch `epoch` step by step; -> each step's metrics (floats).
+    after(), if given, is called after each step."""
+    tr.prepare_for_steps(epoch)
+    out = []
+    for i, b in enumerate(tr._device_batches(epoch)):
+        out.append({k: float(v) for k, v in tr._step(epoch, i, b).items()})
+        if after:
+            after()
+    return out
+
+
+def test_wiou_trainer_saves_and_resumes_the_running_mean(run):
+    """iou_type 'wiou': the state's running mean moves every step, the
+    checkpoint holds it (a float, as JAX's), and a Trainer resumed from it,
+    the port's and JAX's, starts from it bit for bit."""
+    jcfg, cfg = _configs()
+    for c in (jcfg, cfg):
+        c.model.head.iou_type = "wiou"
+    tr = Trainer(_args(save_dir=str(run.root / "wiou"), pretrained=run.pre), cfg, run.data,
+                 device="cpu")
+    assert float(tr.state.wiou_mean) == 1.0
+    means = []
+    for m in _losses(tr, after=lambda: means.append(float(tr.state.wiou_mean))):
+        assert all(np.isfinite(v) for v in m.values()) and "wiou_mean" not in m
+    assert len(set(means)) == len(means) == 2 and 1.0 not in means
+    tr.eval_and_save(0)
+    path = str(run.root / "wiou" / "last_ckpt.npck")
+    saved = ckpt.load_checkpoint(path)["wiou_mean"]
+    assert isinstance(saved, float) and saved == means[-1]
+    again = Trainer(_args(save_dir=str(run.root / "wiou2"), resume=path), cfg, run.data,
+                    device="cpu")
+    assert torch.equal(again.state.wiou_mean, tr.state.wiou_mean)
+    assert again.state.wiou_mean.dtype == torch.float32
+    jtr = JaxTrainer(_args(save_dir=str(run.root / "wiou_jax"), resume=path), jcfg, run.data,
+                     mesh=make_mesh(1))
+    assert np.float32(jtr.state["wiou_mean"]) == again.state.wiou_mean.numpy()
+
+
+def test_distill_trainer_epoch(run):
+    """--distill --distill-feat: the teacher is the checkpoint's meta.graph
+    in eval mode holding its EMA (eval_variables), and stays so through an
+    epoch whose losses carry the feature term."""
+    teacher_ckpt = {"model": random_train_variables(build_model(TINY_GRAPH, nc=NC).specs, 30),
+                    "ema": random_train_variables(build_model(TINY_GRAPH, nc=NC).specs, 31),
+                    "meta": {"graph": TINY_GRAPH, "nc": NC}}
+    path = str(run.root / "teacher.npck")
+    with open(path, "wb") as f:
+        pickle.dump(teacher_ckpt, f)
+    tr = Trainer(_args(save_dir=str(run.root / "distill"), pretrained=run.pre, distill=True,
+                       teacher_model_path=path, distill_feat=True, temperature=10.0),
+                 run.cfg, run.data, device="cpu")
+    assert tr.loss_type == "distill" and not tr.teacher.training
+    got = state_dict_to_train_variables(tr.teacher.state_dict())
+    for k, v in tree_leaves(teacher_ckpt["ema"]):
+        np.testing.assert_array_equal(dict(tree_leaves(got))[k], v, err_msg=k)
+    before = {k: v.clone() for k, v in tr.teacher.state_dict().items()}
+    losses = _losses(tr)
+    assert len(losses) == 2 and all(m["cwd"] > 0 and np.isfinite(m["loss"]) for m in losses)
+    assert not tr.teacher.training
+    assert all(torch.equal(v, before[k]) for k, v in tr.teacher.state_dict().items())
+    assert tr.state.updates == 2
+
+
+def test_repopt_trainer_epoch_and_eval(run, tmp_path):
+    """training_mode='repopt' with cfg.model.scales (a pickle of
+    random_scales_like): from scratch the plain kernels are re-initialized
+    by repopt_prepare with the run's seed and the masks are its masks; with
+    --pretrained they are the pretrained kernels. An epoch trains, and the
+    plain EMA is folded and evaluated by run_eval."""
+    from mafyolo_tpu_torch.solver import repopt as R
+    _, cfg = _configs()
+    cfg.training_mode = "repopt"
+    torch.manual_seed(0)
+    ref = build_model(TINY_GRAPH, nc=NC, plain_rep=True)
+    scales = R.random_scales_like(ref, np.random.default_rng(9))
+    cfg.model.scales = str(tmp_path / "scales.pkl")
+    with open(cfg.model.scales, "wb") as f:
+        pickle.dump(scales, f)
+    tr = Trainer(_args(save_dir=str(run.root / "repopt"), epochs=1), cfg, run.data,
+                 device="cpu")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        ref = build_model(TINY_GRAPH, nc=NC, plain_rep=True)
+    masks = R.repopt_prepare(ref, scales, np.random.default_rng(0))
+    assert tr.grad_mask.keys() == masks.keys() and len(masks) == 5
+    for n, m in masks.items():
+        assert torch.equal(tr.grad_mask[n], m)
+        assert torch.equal(dict(tr.state.model.named_parameters())[n], dict(
+            ref.named_parameters())[n]), n
+    assert not any(".pw." in n for n, _ in tr.state.model.named_parameters())
+    tr.train_one_epoch(0)
+    metrics = tr.eval_and_save(0)
+    assert tr.state.updates == 2 and metrics is not None
+    assert all(np.isfinite(v) for v in metrics.values())
+    pre = Trainer(_args(save_dir=str(run.root / "repopt_pre"), epochs=1, pretrained=run.pre),
+                  cfg, run.data, device="cpu")
+    want = dict(tree_leaves(jax_ckpt.load_checkpoint(run.pre)["model"]["params"]))
+    got = dict(tree_leaves(state_dict_to_train_variables(
+        dict(pre.state.model.named_parameters()))["params"]))
+    for n in masks:
+        k = n.replace(".", "/").replace("weight", "kernel")
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_simota_trainer_epoch_then_eval_raises_as_jax(run):
+    """--simota on a graph with Head_simota heads trains its epoch; the
+    per-epoch eval then fails in the Evaler's DFL decode with TypeError, as
+    JAX's Trainer does (tests/test_torch_simota.py holds the two Evalers)."""
+    from test_torch_simota import SIMOTA_GRAPH
+    _, cfg = _configs()
+    cfg.model.graph = SIMOTA_GRAPH
+    tr = Trainer(_args(save_dir=str(run.root / "simota"), epochs=1, simota=True), cfg,
+                 run.data, device="cpu")
+    assert tr.loss_type == "simota"
+    losses = _losses(tr)
+    assert all(set(m) == {"loss", "iou", "l1", "obj", "cls"} and np.isfinite(m["loss"])
+               for m in losses)
+    with pytest.raises(TypeError, match="reshape"):
+        tr.eval_and_save(0)

@@ -134,6 +134,16 @@ Phases, in order; any failure exits non-zero without a result line:
                 repopt + Wise-IoU Trainer for an epoch on images held in
                 memory, evaluated, the repopt EMA served; SimOTA's decode
                 through batched_nms.
+ 26. office     the YOLOv6 office graphs N, M and L at full width
+                (office_phase's docstring lists the gates): served at
+                bs32@640 bf16 through Evaler.predict (N and M by the
+                front-end's layers-0-1 mode, one launch a predict; L by its
+                own layers), the layers-0-1 kernel against its plain version
+                and the model's own layers 0-1, f32 card against CPU, bf16
+                against f32, img/s and the kernel's times; office N trained
+                by the Trainer for an epoch with --device-aug, evaluated,
+                resumed bit for bit, its EMA served; an f32 step card
+                against CPU; an M step at bs8@640.
 Each entry of the "kernels" line carries bound_ms, the least time the card
 could take: the larger of the bytes moved (inputs read once, outputs written
 once) over 3.35 TB/s and the operations over the peak rate of the operand
@@ -226,15 +236,16 @@ def bound(nbytes, flops, kind):
 
 
 def frontend_bound(cfg, b, h, w, out_bytes=2):
-    """Layers 0-2 without halo recompute: uint8 image in, [b, h/4, w/4, c2]
-    out, the weights once; 2 FLOPs per multiply-add of every conv."""
-    c0, c1, c_, mid, depth, c2 = cfg.dims()
+    """Layers 0-2 (0-1 at depth 0) without halo recompute: uint8 image in,
+    [b, h/4, w/4, cout] out, the weights once; 2 FLOPs per multiply-add of
+    every conv."""
+    c0, c1, c_, mid, depth, c2 = cfg.dims()     # depth 0: layers 0-1, c_ = mid = c2 = 0
     p0, p1 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
     fma = p0 * 27 * c0 + p1 * (9 * c0 * c1 + c1 * 2 * c_ + depth * (2 * c_ * mid + 9 * mid)
                                + (2 + depth) * c_ * c2)
     weights = 4 * (27 * c0 + 9 * c0 * c1 + c1 * 2 * c_ + depth * (2 * c_ * mid + 9 * mid)
                    + (2 + depth) * c_ * c2)
-    return bound(b * h * w * 3 + p1 * c2 * out_bytes + weights, 2 * fma, "bf16")
+    return bound(b * h * w * 3 + p1 * cfg.cout * out_bytes + weights, 2 * fma, "bf16")
 
 
 def neck_bound(cfg, b, elem_bytes=2):
@@ -920,6 +931,7 @@ def main():
     ddp_phase(dev, card)
     rec = recipes_phase(dev, card)
     torch.set_grad_enabled(False)
+    office = office_phase(dev, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -930,9 +942,11 @@ def main():
          "ms": fe_n["frontend_ms"], "plain_ms": fe_n["frontend_plain_ms"],
          "bound_ms": fe_n["bound_ms"], "bound_by": fe_n["bound_by"],
          "library_ms": fe_n["model_layers0_2_ms"]},
+        office["kernel"],
         {"name": "greedy_nms", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "mafyolo_tpu/ops/pallas_nms.py:60",
-         "launches": launches["greedy_nms"] + rec["greedy_nms"], "max_abs_err": nms_err,
+         "launches": launches["greedy_nms"] + rec["greedy_nms"] + office["launches"]["greedy_nms"],
+         "max_abs_err": nms_err,
          "ms": nms_ms[512], "plain_ms": nms_plain_ms[512],
          "bound_ms": nms_bound["bound_ms"], "bound_by": nms_bound["bound_by"],
          "library_ms": None},
@@ -1893,12 +1907,16 @@ def train_phases(dev):
             "dk_bound": bound(dk_bytes, dk_flops, "bf16")}
 
 
-def step_card_vs_cpu(dev, graph, n_sites, phase="train_check", recipe=None):
+def step_card_vs_cpu(dev, graph, n_sites, phase="train_check", recipe=None, label=None,
+                     dtype=None, gate=True):
     """One f32 step of `graph` at bs2@160 on the card (the dw_grad kernel)
     against the CPU (its plain version), from the same random train weights:
     loss components (and Wise-IoU's running mean) within 1e-3, each gradient
     and BN buffer within 1e-2 of its scale; the card's step launches dw_grad
-    once a DW site. recipe (recipes_phase's RECIPES entry) gives the step's
+    once a DW site. dtype=torch.float64 runs both models in f64 (a graph
+    without DW sites: dw_grad takes f32 and bf16); gate=False records the
+    errors without holding them to the tolerances (the dw_grad count is held
+    either way). recipe (recipes_phase's RECIPES entry) gives the step's
     loss and its inputs: the plain graph re-initialized and masked by
     repopt_prepare from the same scales, or a teacher from other random
     weights, on both sides alike."""
@@ -1931,7 +1949,7 @@ def step_card_vs_cpu(dev, graph, n_sites, phase="train_check", recipe=None):
             t.load_state_dict(train_variables_to_state_dict(
                 random_train_variables(t.specs, seed=4)))
             kw.update(teacher=t.to(where).to(memory_format=cl), distill_feat=True)
-        m = m.to(where).to(memory_format=cl)
+        m = m.to(where, dtype or torch.float32).to(memory_format=cl)
         st = init_train_state(m, weight_decay=5e-4)
         before = DG.dw_grad.launches
         met = make_train_step(num_classes=NC, img_size=160, **kw)(
@@ -1947,24 +1965,29 @@ def step_card_vs_cpu(dev, graph, n_sites, phase="train_check", recipe=None):
     s_err = _leaf_errors(bn["card"], bn["cpu"])
     l_err = max(abs(comps["card"][k] - v) / max(abs(v), 1e-6) for k, v in comps["cpu"].items())
     worst = sorted(g_err.items(), key=lambda kv: -kv[1])[:3]
-    emit(phase=phase, model=graph if isinstance(graph, str) else "maf-yolo-n (Head_simota)",
+    emit(phase=phase, model=label or (graph if isinstance(graph, str)
+                                      else "maf-yolo-n (Head_simota)"),
          recipe={k: v for k, v in recipe.items() if k != "graph"}, batch=2, img=160,
-         dtype="f32", loss_cpu=comps["cpu"], loss_card=comps["card"], loss_rel_err=l_err,
+         gated=gate, dtype=str(dtype or torch.float32).replace("torch.", ""),
+         loss_cpu=comps["cpu"], loss_card=comps["card"], loss_rel_err=l_err,
          grad_leaves=len(g_err), grad_max_rel_err=max(g_err.values()), grad_worst=worst,
          bn_stats_max_rel_err=max(s_err.values()),
          tolerance="loss components rel 1e-3; each gradient and BN buffer: "
                    "max|card - cpu| <= 1e-2 * max(max|cpu leaf|, 1e-2 * max over leaves)")
+    if not gate:
+        return
     check(l_err <= 1e-3, f"{phase} loss components differ: {comps}")
     check(max(g_err.values()) <= 1e-2, f"{phase} gradients differ: {worst}")
     check(max(s_err.values()) <= 1e-2, f"{phase} BN running stats differ")
 
 
-def serve_ema(dev, graph, ema_vars, imgs, phase="train_to_serve"):
+def serve_ema(dev, graph, ema_vars, imgs, phase="train_to_serve", label=None):
     """The EMA folded and served through Evaler.predict on imgs (bs32@640),
     with the front-end and NMS launches read around it; the fold checked on
     raw outputs: the folded model in f32 (front-end kernel included) against
     the train form in eval mode on the same EMA weights, 4 images, at every
-    head's stem (feat), cls_proj and reg_proj output and its cls and reg.
+    head's stem (feat), cls_proj and reg_proj (an office head's cls_conv and
+    reg_conv) output and its cls and reg.
     After a few optimizer steps the EMA's preds are still near their zero
     init, so every score sits near the prior (0.01) and few or no boxes
     clear conf 0.03: the boxes are checked for shape and finiteness only."""
@@ -1990,7 +2013,7 @@ def serve_ema(dev, graph, ema_vars, imgs, phase="train_to_serve"):
     def inner(model, run):
         got, hooks = {}, []
         for name, m in model.named_modules():
-            if name.endswith(("cls_proj", "reg_proj")):
+            if name.endswith(("cls_proj", "reg_proj", "cls_conv", "reg_conv")):
                 hooks.append(m.register_forward_hook(
                     lambda mod, a, o, name=name: got.__setitem__(name, o)))
         with torch.no_grad():
@@ -2006,7 +2029,7 @@ def serve_ema(dev, graph, ema_vars, imgs, phase="train_to_serve"):
     check(got.keys() == want.keys() and len(want) == 15, f"{phase}: outputs differ in kind")
     fold_err = {k: (got[k].float() - w).abs().max().item() / w.abs().max().item()
                 for k, w in want.items()}
-    emit(phase=phase, model=graph, launches=serve_launches,
+    emit(phase=phase, model=label or graph, launches=serve_launches,
          dets_per_image_mean=float(out["valid"].sum(1).float().mean().item()),
          max_score=max(o[1].float().max().item() for o in ev.forward(four)),
          fold_outputs=len(fold_err), fold_max_rel_err=max(fold_err.values()),
@@ -2975,6 +2998,317 @@ def recipes_phase(dev, card):
           f"recipes: repopt EMA card vs CPU: {matched}/{n_ref} detections matched")
     tmp.cleanup()
     return total
+
+
+# office: the YOLOv6 office graphs (models/office.py, OFFICE_CONFIGS) at
+# full width. Their random deploy weights take the gain that keeps each
+# graph's activations image-dependent and finite (random_deploy): N's
+# RepBlocks keep 1.5, M's alpha-weighted BottleRep residuals grow faster,
+# L's SiLU ConvWrappers faster still.
+OFFICE_GAIN = {"yolov6n-office": 1.5, "yolov6m-office": 1.2, "yolov6l-office": 1.1}
+OFFICE_BATCHES = 4          # bs32@640 batches of each office predict
+OFFICE_TRAIN_IMAGES = 40    # the office Trainer's epoch: batches of 32 and 8
+OFFICE_M_TRAIN_BATCH = 8
+# The least share of the f32 predict's detections that the bf16 predict of
+# the same bs32 batch matches (match()'s criterion), per office graph: 0.6 x
+# the first card run's, 376 / 1148, 707 / 1232 and 368 / 723 (PERF.md §6,
+# the office entry; NVIDIA H100 80GB HBM3, 700.00 W), for the reason BF16_SHARE_FLOOR
+# gives.
+OFFICE_SHARE_FLOOR = {"yolov6n-office": 0.196, "yolov6m-office": 0.344, "yolov6l-office": 0.305}
+
+
+def model_layers0_1(model, dtype):
+    """The deploy model's own layers 0-1 on uint8 BGR NHWC images, with the
+    flip, the cast and /255 of Evaler.forward's other branch."""
+    net = model.net
+
+    def run(imgs):
+        x = (imgs.flip(-1).to(dtype) / 255.0).permute(0, 3, 1, 2)
+        return net.layer1(net.layer0(x))
+    return run
+
+
+def office_config(name):
+    """configs/maf_yolo_n.py's solver and augmentation around an office
+    graph's model section (its head's loss settings, giou with DFL, too)."""
+    from mafyolo_tpu_torch.models.office import OFFICE_CONFIGS
+    from mafyolo_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(os.path.join(HERE, "configs", "maf_yolo_n.py"))
+    model_cfg, mode = OFFICE_CONFIGS[name]
+    cfg.model = dict(model_cfg, head=dict(cfg.model.head.to_dict(), **model_cfg["head"]))
+    cfg.training_mode = mode
+    return cfg
+
+
+def office_phase(dev, card):
+    """Phase 26: the YOLOv6 office graphs (EfficientRep / CSPBep + RepPAN +
+    EffiDeHead) served and trained on the card.
+
+    Serve: N, M and L at full width on random_deploy weights, bf16,
+    OFFICE_BATCHES batches of bs32 uint8 @640 through Evaler.predict, the
+    front-end and NMS launches read around that run: N and M take the
+    front-end's layers-0-1 mode (one launch a predict), L its own layers
+    (layer 0 is a ConvWrapper: no launch); NMS at least once a predict.
+    Then, on the first batch: the layers-0-1 kernel against its plain
+    version (bf16 within the JAX kernel tests' 0.05 and mean < 0.01, f32
+    within 1e-3, the errors printed) and the f32 kernel against the f32
+    model's own layers 0-1 (1e-3); the f32 card predict against the CPU's
+    on 2 images (>= 95% of the CPU's detections above 0.1 matched); the
+    bf16 predict against the f32 one (OFFICE_SHARE_FLOOR); img/s, p50, the
+    stage split, and the kernel's ms beside its plain version, the model's
+    own layers 0-1 (bf16 cuDNN) and its bound.
+
+    Train: office N through the Trainer with --device-aug, bs32@640 bf16 on
+    OFFICE_TRAIN_IMAGES images held in memory, for one epoch that ends in
+    an eval (rect batches through the layers-0-1 route and the NMS kernel,
+    one front-end launch a batch, no dw_grad launch anywhere: the office
+    graphs have no depthwise conv); its checkpoint's meta.graph is the
+    office dict and a Trainer resumed from it holds the same state bit for
+    bit; the EMA folded and served (serve_ema); one step of N on the card
+    against the CPU (step_card_vs_cpu), held in f64 and recorded in f32
+    (office_train's comment says why); one M step at bs8@640 bf16
+    with its peak memory and time. -> {"kernel": the layers-0-1 entry of
+    the kernels line, "launches": the phase's launches by kernel}."""
+    import torch
+
+    from mafyolo_tpu_torch.models.office import office_config_graph
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.ops.nms import fused_decode_nms
+    from mafyolo_tpu_torch.utils.sample import evaler, images, random_deploy
+    from mafyolo_tpu_torch.utils.timing import cuda_ms
+
+    def launches():
+        return {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
+                "greedy_nms": G.greedy_nms.launches}
+
+    total = {"dw_grad": 0, "frontend": 0, "greedy_nms": 0}
+    shares, timing, errs = {}, {}, {}
+    for name in ("yolov6n-office", "yolov6m-office", "yolov6l-office"):
+        graph = office_config_graph(name)
+        folded, _ = random_deploy(graph, dev, OFFICE_GAIN[name])
+        ev = evaler(graph, folded, True, dev)
+        fe = ev.fe_skip == 1
+        check(ev.fe_skip == (1 if name != "yolov6l-office" else -1),
+              f"office {name}: front-end route {ev.fe_skip}")
+        batches = [images(800 + i, BATCH).to(dev) for i in range(OFFICE_BATCHES)]
+        torch.cuda.synchronize()
+        DG.dw_grad.launches = FE.frontend_forward.launches = G.greedy_nms.launches = 0
+        outs = [ev.predict(bt) for bt in batches]
+        torch.cuda.synchronize()
+        n = launches()
+        for k, v in n.items():
+            total[k] += v
+        emit(phase="office_serve", model=name, dtype="bf16", batch=BATCH, img=IMG,
+             batches=OFFICE_BATCHES, fe_skip=ev.fe_skip, launches=n,
+             dets_per_image_mean=float(torch.cat([o["valid"].sum(1) for o in outs])
+                                       .float().mean().item()))
+        check(n["frontend"] == (OFFICE_BATCHES if fe else 0) and n["greedy_nms"] >= OFFICE_BATCHES
+              and n["dw_grad"] == 0, f"office {name}: launches {n}")
+        check_dets(outs, BATCH, f"office {name}")
+
+        x = batches[0]
+        ev32 = evaler(graph, folded, False, dev)
+        rec = {}
+        if fe:
+            fw = ev.fe_weights
+            want = FE.frontend_plain(x, fw)
+            got32 = FE.frontend_forward(x, fw, torch.float32)
+            e32, e16, m16 = kernel_vs_plain(got32, FE.frontend_forward(x, fw, torch.bfloat16),
+                                            want, f"office {name} layers 0-1")
+            own = model_layers0_1(ev32.model, torch.float32)(x).permute(0, 2, 3, 1)
+            e_own = (got32 - own).abs().max().item()
+            check(torch.allclose(got32, own, atol=1e-3, rtol=1e-3),
+                  f"office {name}: layers-0-1 kernel against the model's own layers: {e_own}")
+            errs[name] = e16
+            rec = {"max_abs_err_f32": e32, "max_abs_err_bf16": e16, "mean_abs_err_bf16": m16,
+                   "max_abs_err_f32_vs_model_layers0_1": e_own, "out_std": want.std().item(),
+                   "bf16_plan": dict(zip(("tile_h", "tile_w", "smem_bytes", "threads"),
+                                         FE.frontend_plan(fw))),
+                   "f32_plan": dict(zip(("tile_h", "tile_w", "smem_bytes", "threads"),
+                                        FE.frontend_plan(fw, torch.float32)))}
+            del want, got32, own
+        two = images(813, 2)
+        n_cpu, m_cpu = match(evaler(graph, folded, False, "cpu").predict(two),
+                             on_cpu(ev32.predict(two.to(dev))), 0.1)
+        emit(phase="office_check", model=name, card=card, cpu_f32_dets_above_0p1=n_cpu,
+             cpu_matched=m_cpu, cpu_fraction=m_cpu / max(n_cpu, 1), **rec)
+        check(n_cpu >= 10 and m_cpu / n_cpu >= 0.95,
+              f"office {name}: card f32 vs CPU {m_cpu}/{n_cpu} detections matched")
+        shares[name] = bf16_vs_f32(f"{name}", ev32.predict(x), outs[0], ev32.forward(x),
+                                   ev.forward(x))["share"]
+        del ev32
+
+        img_s, e2e, p50, p90 = route_timing(ev.predict, batches)
+        stage = {}
+        if fe:
+            y = FE.frontend_forward(x, fw, torch.bfloat16)
+            stage = {"frontend_ms": cuda_ms(lambda: FE.frontend_forward(x, fw, torch.bfloat16),
+                                            10),
+                     "frontend_f32_ms": cuda_ms(lambda: FE.frontend_forward(x, fw), 5),
+                     "frontend_plain_ms": cuda_ms(
+                         lambda: FE.frontend_plain(x, fw, torch.bfloat16), 5),
+                     "model_layers0_1_ms": cuda_ms(
+                         lambda: model_layers0_1(ev.model, torch.bfloat16)(x), 10),
+                     "layers2_26_ms": cuda_ms(lambda: ev.model(y), 10),
+                     **frontend_bound(fw.cfg, BATCH, IMG, IMG)}
+            heads = ev.model(y)
+            del y
+        else:
+            stage = {"model_ms": cuda_ms(lambda: ev.forward(x), 10)}
+            heads = ev.forward(x)
+        stage["decode_nms_ms"] = cuda_ms(lambda: fused_decode_nms(heads), 10)
+        timing[name] = stage
+        emit(phase="office_timing", model=name, card=card, dtype="bf16", batch=BATCH, img=IMG,
+             img_per_s=img_s, batch_ms_mean=e2e, p50_batch_ms=p50, p90_batch_ms=p90, **stage)
+        del ev, batches, outs, heads
+        torch.cuda.empty_cache()
+    emit(phase="office_bf16_vs_f32_shares", shares=shares, floors=OFFICE_SHARE_FLOOR)
+    for key, floor in OFFICE_SHARE_FLOOR.items():
+        check(shares[key] >= floor, f"office bf16 against f32, {key}: {shares[key]} < {floor}")
+
+    with torch.enable_grad():
+        office_train(dev, card, total)
+    t_n = timing["yolov6n-office"]
+    kernel = {"name": "frontend_layers01", "route": "cuda",
+              "source": "mafyolo_tpu_torch/csrc/frontend.cu",
+              "replaces": "mafyolo_tpu/ops/frontend_pallas.py:467 (fuse_l2=False)",
+              "launches": total["frontend"], "max_abs_err": max(errs.values()),
+              "ms": t_n["frontend_ms"], "plain_ms": t_n["frontend_plain_ms"],
+              "bound_ms": t_n["bound_ms"], "bound_by": t_n["bound_by"],
+              "library_ms": t_n["model_layers0_1_ms"]}
+    emit(phase="office_launches", launches=total)
+    return {"kernel": kernel, "launches": total}
+
+
+def office_train(dev, card, total):
+    """office_phase's train half (its docstring lists the gates); adds the
+    launches of its main path to `total`."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from mafyolo_tpu_torch.core.engine import Trainer
+    from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.models.office import office_config_graph
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.utils.bridge import state_dict_to_train_variables
+    from mafyolo_tpu_torch.utils.checkpoint import load_checkpoint
+    from mafyolo_tpu_torch.utils.sample import ArrayDataset, eval_set, images, train_set
+    from mafyolo_tpu_torch.utils.timing import cuda_ms
+
+    def launches():
+        return {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
+                "greedy_nms": G.greedy_nms.launches}
+
+    # ---- office N through the Trainer, then resume, serve the EMA
+    name = "yolov6n-office"
+    cfg = office_config(name)
+    data = {"train": train_set(50, OFFICE_TRAIN_IMAGES, size=IMG),
+            "val": eval_set(51, [(IMG, IMG)] * 8 + [(IMG * 3 // 4, IMG)] * 8), "nc": NC,
+            "names": [str(c) for c in range(NC)]}
+    eval_batches = -(-len(data["val"]["images"]) // min(2 * BATCH, 64))
+    tmp = tempfile.TemporaryDirectory()
+
+    def make(save_dir, **kw):
+        args = SimpleNamespace(img_size=IMG, batch_size=BATCH, epochs=2, workers=8, seed=0,
+                               save_dir=save_dir, device_aug=True, stop_aug_last_n_epoch=0,
+                               eval_interval=1, tensorboard=False, **kw)
+        return Trainer(args, cfg, data, device=dev, dataset_cls=ArrayDataset)
+
+    a = make(os.path.join(tmp.name, "a"))
+    graph = office_config_graph(name)
+    check(a.graph == graph and a.max_stepnum == -(-OFFICE_TRAIN_IMAGES // BATCH),
+          f"office trainer: {a.max_stepnum} steps")
+    DG.dw_grad.launches = FE.frontend_forward.launches = G.greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    running = a.train_one_epoch(0)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    mid = launches()
+    metrics = a.eval_and_save(0)
+    torch.cuda.synchronize()
+    after = launches()
+    ev_n = {k: after[k] - mid[k] for k in after}
+    for k, v in after.items():
+        total[k] += v
+    ckpt = load_checkpoint(os.path.join(tmp.name, "a", "last_ckpt.npck"))
+    snap = {"model": a.state.model.state_dict(), "ema": a.state.ema.state_dict(),
+            "mom": a._momentum()}
+    b = make(os.path.join(tmp.name, "b"), resume=os.path.join(tmp.name, "a", "last_ckpt.npck"))
+    diff = [k for k, v in b.state.model.state_dict().items() if not torch.equal(v, snap["model"][k])]
+    diff += [f"ema {k}" for k, v in b.state.ema.state_dict().items()
+             if not torch.equal(v, snap["ema"][k])]
+    diff += [f"momentum {k}" for k, v in b._momentum().items() if not torch.equal(v, snap["mom"][k])]
+    resumed = b.start_epoch == 1 and not diff and b.state.updates == a.state.updates
+    x, t = (v.to(dev) for v in next(iter(b._device_batches(1))))
+    step_ms = cuda_ms(lambda: b._step(1, 0, (x, t)), 3)
+    emit(phase="office_trainer", model=name, card=card, dtype="bf16", batch=BATCH, img=IMG,
+         images=OFFICE_TRAIN_IMAGES, steps=a.max_stepnum, updates=a.state.updates,
+         running=running, epoch_s=epoch_s, train_launches=mid, eval_launches=ev_n,
+         eval=metrics, meta_graph_is_office=ckpt["meta"]["graph"] == graph,
+         resume_start_epoch=b.start_epoch, resume_entries_differing=len(diff),
+         resume_first=diff[:3], step_ms=step_ms, step_img_per_s=BATCH / (step_ms / 1e3),
+         note="step_ms: a train step of the resumed Trainer on a full batch (device aug "
+              "included) by CUDA events; epoch_s: the first epoch by the host clock "
+              "(its first steps build the cuDNN plans)")
+    check(mid["dw_grad"] == 0 and mid["frontend"] == 0 and after["dw_grad"] == 0,
+          f"office trainer: train launches {mid}, after the eval {after}")
+    check(metrics is not None and all(np.isfinite(v) for v in metrics.values()),
+          f"office trainer: eval {metrics}")
+    check(ev_n["frontend"] == eval_batches and ev_n["greedy_nms"] >= eval_batches,
+          f"office trainer: eval launches {ev_n} over {eval_batches} batches")
+    check(ckpt["meta"]["graph"] == graph and ckpt["epoch"] == 0,
+          "office trainer: the checkpoint's meta.graph is not the office graph")
+    check(resumed, f"office trainer resume: start {b.start_epoch}, differs {diff[:3]}")
+    ema_vars = state_dict_to_train_variables(a.state.ema.state_dict())
+    del a, b, snap, x, t
+    served = serve_ema(dev, graph, ema_vars, images(820, BATCH, IMG, IMG).to(dev),
+                       phase="office_train_to_serve", label=name)
+    total["frontend"] += served["frontend"]
+    total["greedy_nms"] += served["greedy_nms"]
+    tmp.cleanup()
+    # In f32 this step is ill-conditioned: with random heads (a cls loss
+    # near 1e3) the train-mode BNs' backward cancels, the CPU's own f32
+    # gradients sit 6e-3 of a leaf's scale from its f64 ones, and the card's
+    # (cuDNN's f32 algorithms, TF32 off) 0.127 at layer 20's first RepVGG
+    # block; the card's f64 step is 1.6e-5 from the CPU's (NVIDIA H100 80GB
+    # HBM3, 700.00 W). So f64 is held and f32 recorded.
+    step_card_vs_cpu(dev, graph, 0, phase="office_train_check", label=name,
+                     dtype=torch.float64)
+    step_card_vs_cpu(dev, graph, 0, phase="office_train_check_f32", label=name, gate=False)
+
+    # one M step at bs8@640 in bf16: peak memory and time
+    torch.cuda.empty_cache()
+    torch.manual_seed(0)
+    m_graph = office_config_graph("yolov6m-office")
+    model = build_model(m_graph, nc=NC).to(dev).to(memory_format=torch.channels_last)
+    state = init_train_state(model, weight_decay=5e-4)
+    step = make_train_step(num_classes=NC, img_size=IMG, dtype=torch.bfloat16)
+    im, tg = train_batch(830, OFFICE_M_TRAIN_BATCH, IMG, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    DG.dw_grad.launches = 0
+    loss = {k: float(v) for k, v in step(state, im, tg, 0.01, 0.01, 0.01, 0.9, True,
+                                         True).items()}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m_ms = cuda_ms(lambda: step(state, im, tg, 0.01, 0.01, 0.01, 0.9, True, True), 3)
+    emit(phase="office_m_train", model="yolov6m-office", card=card, dtype="bf16",
+         batch=OFFICE_M_TRAIN_BATCH, img=IMG, loss=loss, peak_mem_gb=peak, step_ms=m_ms,
+         img_per_s=OFFICE_M_TRAIN_BATCH / (m_ms / 1e3), dw_grad_launches=DG.dw_grad.launches,
+         updates=state.updates)
+    check(all(np.isfinite(v) for v in loss.values()) and state.updates >= 1,
+          f"office M train step: {loss}")
+    check(DG.dw_grad.launches == 0, "office M train step launched dw_grad")
+    del model, state, step
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

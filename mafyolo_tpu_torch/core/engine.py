@@ -24,9 +24,12 @@ the SimOTA loss of a Head_simota graph; --distill distills from the
 checkpoint at --teacher-model-path (its meta.graph and its EMA, the
 weights an eval reads); training_mode='repopt' trains the plain graph
 under gradient masks from cfg.model.scales (solver/repopt.py), the
-kernels re-initialized from the scales unless --pretrained. The office
-graphs (ROADMAP Queue 1, remaining training variants) and per-block
-rematerialization raise.
+kernels re-initialized from the scales unless --pretrained. A config whose
+model has build_type other than 'yaml' trains a YOLOv6 office graph
+(EfficientRep or CSPBep, RepPAN, EffiDeHead), which models/office.py:
+office_graph writes from the model section and the config's training_mode
+(engine.py:52-58); its checkpoints carry that graph dict as meta.graph.
+Per-block rematerialization raises.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
 from mafyolo_tpu_torch.data.datasets import DetectionDataset
 from mafyolo_tpu_torch.data.loader import create_dataloader
 from mafyolo_tpu_torch.models import build_model
+from mafyolo_tpu_torch.models.office import office_graph
 from mafyolo_tpu_torch.parallel import ddp
 from mafyolo_tpu_torch.solver.build import build_lr_fn, warmup_schedule
 from mafyolo_tpu_torch.solver.repopt import load_scales, repopt_prepare
@@ -53,11 +57,6 @@ from mafyolo_tpu_torch.utils.checkpoint import (eval_variables, find_latest_chec
                                                 load_checkpoint, load_shape_matched,
                                                 save_checkpoint, strip_checkpoint)
 from mafyolo_tpu_torch.utils.events import LOGGER
-
-
-def _unported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, remaining training variants)")
 
 
 class Schedule:
@@ -120,19 +119,21 @@ class Trainer:
         self.main = ddp.is_main_process()
         os.makedirs(self.save_dir, exist_ok=True)
 
-        if cfg.model.get("build_type", "yaml") != "yaml":
-            _unported("the office graphs (build_type != 'yaml')")
         if getattr(args, "remat", False):
             raise NotImplementedError(
                 "per-block rematerialization is not ported: N trains at bs32@640 "
                 "in 12.2 GB of the card's 80")
-        self.graph = getattr(cfg.model, "graph", None) or cfg.model.get(
-            "yaml_file", "maf-yolo-n")
+        # repopt trains the plain (RealVGG) graph under gradient masks
+        self.training_mode = cfg.get("training_mode", "repvgg")
+        if cfg.model.get("build_type", "yaml") != "yaml":
+            # the office path: the YOLOv6 topology written as a graph dict
+            self.graph = office_graph(cfg.model, self.training_mode)
+        else:
+            self.graph = getattr(cfg.model, "graph", None) or cfg.model.get(
+                "yaml_file", "maf-yolo-n")
         head = cfg.model.head
         self.dtype = torch.bfloat16 if getattr(args, "bf16", True) and \
             self.device.type != "cpu" else torch.float32
-        # repopt trains the plain (RealVGG) graph under gradient masks
-        self.training_mode = cfg.get("training_mode", "repvgg")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(args.seed)
             model = build_model(self.graph, nc=self.nc, reg_max=head.reg_max,

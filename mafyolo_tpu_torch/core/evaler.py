@@ -1,11 +1,13 @@
 """Eval loop (counterpart of mafyolo_tpu/core/evaler.py:30-375).
 
 Flow: letterbox loader (data/) -> uint8 BGR NHWC batch to the device -> fused
-front-end (layers 0-2, ops/frontend.py) -> deploy layers 3-33 -> fused decode
-+ greedy NMS (ops/nms.py) -> host-side rescale to native image space
-(scale_coords) -> COCO-format detections -> COCO mAP (utils/coco_eval.py)
-and, with do_pr_metric, P/R/F1 (utils/metrics.py). A batch whose H or W is
-not a multiple of 4 runs the deploy model's own layers 0-2.
+front-end (ops/frontend.py: layers 0-2 of a MAF graph, layers 0-1 of a
+YOLOv6 office graph whose layer 0 is a RepVGG block) -> the other deploy
+layers -> fused decode + greedy NMS (ops/nms.py) -> host-side rescale to
+native image space (scale_coords) -> COCO-format detections -> COCO mAP
+(utils/coco_eval.py) and, with do_pr_metric, P/R/F1 (utils/metrics.py). A
+batch whose H or W is not a multiple of 4, and a graph that does not start
+with the RepVGG 3x3/s2 pair (office L), runs the deploy model's own layers.
 
 speed_result times h2d, infer + NMS and post per batch; on the card each
 part ends in torch.cuda.synchronize(), so each time covers its own part.
@@ -107,8 +109,8 @@ class Evaler:
         self.fe_skip = model.net.skip_until = frontend_skip_until(model.specs, model.save)
         model.load_state_dict(folded_to_state_dict(variables))
         model = model.to(self.device).eval()
-        self.fe_weights = (frontend_build(model.net) if self.fe_skip >= 0
-                           else None)
+        self.fe_weights = (frontend_build(model.net, fuse_l2=self.fe_skip >= 2)
+                           if self.fe_skip >= 0 else None)
         self.model = model.to(dtype=self.dtype,
                               memory_format=torch.channels_last)
         self.nc = nc
@@ -140,8 +142,8 @@ class Evaler:
         (feat, cls, reg) NHWC head outputs in the model dtype.
 
         Routed by shape, as the JAX predict (evaler.py:117-128): the
-        front-end kernel when H and W are multiples of 4, else the full
-        deploy model, its own layers 0-2 included."""
+        front-end kernel (layers 0..fe_skip) when H and W are multiples of
+        4, else the full deploy model, its own first layers included."""
         h, w = imgs_u8.shape[1:3]
         if self.fe_skip >= 0 and h % 4 == 0 and w % 4 == 0:
             return self.model(frontend_forward(imgs_u8, self.fe_weights, self.dtype))

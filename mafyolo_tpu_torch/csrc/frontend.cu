@@ -1,6 +1,7 @@
-// Fused MAF-YOLO front-end: deploy layers 0-2 in one kernel.
+// Fused MAF-YOLO front-end: deploy layers 0-2, or 0-1, in one kernel.
 //
-// Replaces: mafyolo_tpu/ops/frontend_pallas.py:frontend_forward (_kernel).
+// Replaces: mafyolo_tpu/ops/frontend_pallas.py:frontend_forward (_kernel),
+// with fuse_l2 (layers 0-2) and without (layers 0-1).
 //
 // Computes: uint8 BGR NHWC [B, H, W, 3] (H, W multiples of 4) -> NHWC
 // [B, H/4, W/4, c2] in f32 or bf16:
@@ -9,6 +10,12 @@
 //   L2  deploy RepHDW(k=3): x2 = silu(1x1(L1)) split into a | b; a chain of
 //       `depth` bottlenecks on b, each expand 1x1+SiLU -> DW3x3+bias+SiLU ->
 //       project 1x1+SiLU; cv_out = silu(1x1 over concat [a, b, y0..] ).
+// With depth 0 (and cs = mid = c2 = 0) the kernel stops after L1 and writes
+// L1 itself, [B, H/4, W/4, c1]: the layers-0-1 mode, for graphs whose layer
+// 2 is another block (the YOLOv6 office graphs). Each kernel takes it as the
+// template flag kL2 = false: L0 and L1 run as in the full mode on a tile
+// without the DW halo, and L1's results go out in 16-byte stores, so the
+// full mode (kL2 = true) compiles to the code it had before.
 // Every conv pads with zeros: L0 values outside the image are 0 before L1
 // reads them, and expand outputs outside the image are 0 before the DW
 // stencil reads them.
@@ -179,7 +186,7 @@ __device__ __forceinline__ void pointwise(const float* __restrict__ in, int istr
   }
 }
 
-template <typename OutT>
+template <typename OutT, bool kL2>
 __global__ void __launch_bounds__(kMaxThreads)
 frontend_kernel(const uint8_t* __restrict__ img, const float* __restrict__ w,
                 OutT* __restrict__ out, Dims d, Plan p, int tiles_x) {
@@ -273,11 +280,24 @@ frontend_kernel(const uint8_t* __restrict__ img, const float* __restrict__ w,
             for (int j = 0; j < PX; ++j) fma4(acc[j], wk, src[j][off + ci]);
           }
         }
+      if constexpr (kL2) {
 #pragma unroll
-      for (int j = 0; j < PX; ++j)
-        if (p0 + j < P) st4(s_l1 + (p0 + j) * d.c1 + o, relu4(acc[j]));
+        for (int j = 0; j < PX; ++j)
+          if (p0 + j < P) st4(s_l1 + (p0 + j) * d.c1 + o, relu4(acc[j]));
+      } else {
+        // layers 0-1: the R1 grid is the tile; out is [B, H1, W1, c1]
+#pragma unroll
+        for (int j = 0; j < PX; ++j) {
+          const int px = p0 + j;
+          if (px >= P) break;
+          const int Y = ty * T + px / R1, X = tx * T + px % R1;
+          if (Y < H1 && X < W1)
+            st4(out + (((size_t)b * H1 + Y) * W1 + X) * d.c1 + o, relu4(acc[j]));
+        }
+      }
     }
   }
+  if constexpr (!kL2) return;
   __syncthreads();
 
   // Phase 3: x2 = silu(cv_in(L1)) over R1 x R1, channels [a | b].
@@ -422,25 +442,39 @@ cudaError_t pick_plan(const Dims& d, Plan* out) {
   return cudaErrorInvalidConfiguration;
 }
 
-template <typename OutT>
-int launch(const uint8_t* img, const float* w, OutT* out, Dims d, void* stream) {
-  // Every channel count is a multiple of 4 (16-byte weight rows and
-  // activation vectors); all MAF-YOLO widths are.
-  if (d.H % 4 || d.W % 4 || d.depth < 1 || d.B < 1 || d.c0 % 4 || d.c1 % 4 ||
-      d.cs % 4 || d.mid % 4 || d.c2 % 4)
-    return (int)cudaErrorInvalidValue;
-  Plan p;
-  cudaError_t err = pick_plan(d, &p);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(frontend_kernel<OutT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
+// Depth 0 is the layers-0-1 mode: nothing of layer 2 may be given; a
+// negative depth is no mode.
+inline bool layers01_ok(const Dims& d) {
+  return d.depth > 0 || (d.depth == 0 && d.cs == 0 && d.mid == 0 && d.c2 == 0);
+}
+
+template <typename OutT, bool kL2>
+int launch_t(const uint8_t* img, const float* w, OutT* out, Dims d, const Plan& p,
+             void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(frontend_kernel<OutT, kL2>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p.bytes);
   if (err != cudaSuccess) return (int)err;
   const int h1 = d.H / 4, w1 = d.W / 4;
   const int tiles_x = (w1 + p.t - 1) / p.t, tiles_y = (h1 + p.t - 1) / p.t;
   dim3 grid(tiles_x * tiles_y, d.B);
-  frontend_kernel<OutT><<<grid, p.threads, p.bytes, (cudaStream_t)stream>>>(
+  frontend_kernel<OutT, kL2><<<grid, p.threads, p.bytes, (cudaStream_t)stream>>>(
       img, w, out, d, p, tiles_x);
   return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int launch(const uint8_t* img, const float* w, OutT* out, Dims d, void* stream) {
+  // Every channel count is a multiple of 4 (16-byte weight rows and
+  // activation vectors); all MAF-YOLO and YOLOv6 widths are.
+  if (d.H % 4 || d.W % 4 || !layers01_ok(d) || d.B < 1 || d.c0 % 4 ||
+      d.c1 % 4 || d.cs % 4 || d.mid % 4 || d.c2 % 4)
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  cudaError_t err = pick_plan(d, &p);
+  if (err != cudaSuccess) return (int)err;
+  return d.depth ? launch_t<OutT, true>(img, w, out, d, p, stream)
+                 : launch_t<OutT, false>(img, w, out, d, p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -523,7 +557,8 @@ __host__ __device__ inline PlanB make_plan_b(const Dims& d, int th, int tw) {
   if (ys > b) b = ys;
   p.off_b = (int)up16(l0 > tdw ? l0 : tdw);
   p.off_c = p.off_b + (int)up16(b);
-  p.bytes = (size_t)p.off_c + up16(r1 * p.sx * 2);
+  // region C (x2) is not used by the layers-0-1 mode
+  p.bytes = (size_t)p.off_c + (d.depth ? up16(r1 * p.sx * 2) : 0);
   p.threads = 0;
   return p;
 }
@@ -670,6 +705,7 @@ __device__ __forceinline__ void load8(float (&acc)[8], const float* __restrict__
   acc[4] = b.x; acc[5] = b.y; acc[6] = b.z; acc[7] = b.w;
 }
 
+template <bool kL2>
 __global__ void __launch_bounds__(kMaxThreads)
 frontend_mma_kernel(const uint8_t* __restrict__ img, const float* __restrict__ w,
                     const __nv_bfloat16* __restrict__ wm, __nv_bfloat16* __restrict__ out,
@@ -827,6 +863,25 @@ frontend_mma_kernel(const uint8_t* __restrict__ img, const float* __restrict__ w
       [&](int row) { return ORow{s_l1 + (size_t)row * p.s1, false}; });
   phase_end(2);
 
+  if constexpr (!kL2) {
+    // Layers 0-1: the L1 grid is the tile. Its rows go out from shared
+    // memory as 16-byte words (8 channels), a pixel's words and a tile row's
+    // pixels next to each other in the output.
+    const int nv = d.c1 / 8, items = p.th * p.tw * nv;
+    const FastDiv by_nv(nv), by_tw(p.tw);
+    for (int it = tid; it < items; it += nth) {
+      int row, v, ry, rx;
+      by_nv.divmod(it, row, v);
+      by_tw.divmod(row, ry, rx);
+      const int Y = ty * p.th + ry, X = tx * p.tw + rx;
+      if (Y < H1 && X < W1)
+        *reinterpret_cast<uint4*>(out + (((size_t)b * H1 + Y) * W1 + X) * d.c1 + v * 8) =
+            *reinterpret_cast<const uint4*>(s_l1 + (size_t)row * p.s1 + v * 8);
+    }
+    if (prof) phase_end(7);
+    return;
+  }
+
   // Phase 3: x2 = silu(cv_in(L1)), stored [a | b], each half csp wide.
   mma_phase<true, 2>(
       p.r1h * p.r1w, 1, [&](int, int row) { return s_l1 + (size_t)row * p.s1; },
@@ -976,23 +1031,32 @@ cudaError_t pick_plan_b(const Dims& d, PlanB* out) {
   return cudaErrorInvalidConfiguration;
 }
 
-int launch_mma(const uint8_t* img, const float* w, const __nv_bfloat16* wm,
-               __nv_bfloat16* out, Dims d, const PlanB& p, unsigned long long* prof,
-               void* stream) {
-  // 16-byte activation vectors and weight rows: every width a multiple of 8
-  // (all MAF-YOLO widths are).
-  if (d.H % 4 || d.W % 4 || d.depth < 1 || d.B < 1 || d.c0 % 8 || d.c1 % 8 ||
-      d.cs % 8 || d.mid % 8 || d.c2 % 8 || d.c0 > 16 * kMaxNp0)
-    return (int)cudaErrorInvalidValue;
+template <bool kL2>
+int launch_mma_t(const uint8_t* img, const float* w, const __nv_bfloat16* wm,
+                 __nv_bfloat16* out, Dims d, const PlanB& p, unsigned long long* prof,
+                 void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      frontend_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
+      frontend_mma_kernel<kL2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
   if (err != cudaSuccess) return (int)err;
   const int h1 = d.H / 4, w1 = d.W / 4;
   const int tiles_x = (w1 + p.tw - 1) / p.tw, tiles_y = (h1 + p.th - 1) / p.th;
   dim3 grid(tiles_x * tiles_y, d.B);
-  frontend_mma_kernel<<<grid, p.threads, p.bytes, (cudaStream_t)stream>>>(
+  frontend_mma_kernel<kL2><<<grid, p.threads, p.bytes, (cudaStream_t)stream>>>(
       img, w, wm, out, d, p, tiles_x, prof);
   return (int)cudaGetLastError();
+}
+
+int launch_mma(const uint8_t* img, const float* w, const __nv_bfloat16* wm,
+               __nv_bfloat16* out, Dims d, const PlanB& p, unsigned long long* prof,
+               void* stream) {
+  // 16-byte activation vectors and weight rows: every width a multiple of 8
+  // (all MAF-YOLO and YOLOv6 widths are); layer 0 keeps its B fragments in
+  // registers, c0 <= 64.
+  if (d.H % 4 || d.W % 4 || !layers01_ok(d) || d.B < 1 || d.c0 % 8 ||
+      d.c1 % 8 || d.cs % 8 || d.mid % 8 || d.c2 % 8 || d.c0 > 16 * kMaxNp0)
+    return (int)cudaErrorInvalidValue;
+  return d.depth ? launch_mma_t<true>(img, w, wm, out, d, p, prof, stream)
+                 : launch_mma_t<false>(img, w, wm, out, d, p, prof, stream);
 }
 
 }  // namespace
@@ -1016,7 +1080,8 @@ extern "C" int frontend_bf16(const uint8_t* img, const float* w, const void* wm,
 
 // The bf16 kernel with a given tile and block size, for tuning the plan
 // (tools/tune_kernels.py); fails if the tile does not fit. prof: null, or 8
-// counters that receive the clocks of each phase summed over the blocks.
+// counters that receive the clocks of each phase summed over the blocks (in
+// the layers-0-1 mode the store of L1 counts as phase 7).
 extern "C" int frontend_bf16_tile(const uint8_t* img, const float* w, const void* wm,
                                   void* out, int B, int H, int W, int c0, int c1, int cs,
                                   int mid, int depth, int c2, int th, int tw, int threads,
@@ -1031,7 +1096,8 @@ extern "C" int frontend_bf16_tile(const uint8_t* img, const float* w, const void
 }
 
 // Packed weight lengths, so the host can check its buffers: f32 elements,
-// and bf16 elements of the MMA pack.
+// and bf16 elements of the MMA pack. At depth 0 (cs = mid = c2 = 0) the
+// layer-2 parts have no length: w0, b0, w1, b1 alone.
 extern "C" int frontend_weight_len(int c0, int c1, int cs, int mid, int depth, int c2) {
   Dims d{0, 0, 0, c0, c1, cs, mid, depth, c2};
   return weight_offsets(d).bout + c2;

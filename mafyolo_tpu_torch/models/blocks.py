@@ -447,6 +447,28 @@ class UniRepLKNetBlock(nn.Module):
         return self.post_bn(self.drb(x))
 
 
+class ReparamLargeKernelConv(nn.Module):
+    """Large-kernel depthwise conv + a parallel small-kernel branch, then
+    ReLU (blocks.py:644-667). Deploy: relu(one biased DW conv); train:
+    relu(lk_bn(x) + small_bn(x)). models/reparam.py:fold_replk folds it."""
+
+    def __init__(self, ch: int, k: int, stride: int = 1, small_k: int = 3,
+                 deploy: bool = False, quant: bool = False, calibrate: bool = False):
+        super().__init__()
+        self.deploy = deploy
+        if deploy:
+            self.fused = ConvAct(ch, ch, k, stride, groups=ch, quant=quant,
+                                 calibrate=calibrate)
+        else:
+            self.lk = ConvBN(ch, ch, k, stride, groups=ch)
+            self.small = ConvBN(ch, ch, small_k, stride, groups=ch)
+
+    def forward(self, x):
+        if self.deploy:
+            return F.relu(self.fused(x))
+        return F.relu(self.lk(x) + self.small(x))
+
+
 class DepthBottleneckUni(nn.Module):
     """1x1 expand -> depthwise k -> SiLU -> 1x1 project (no residual)."""
 
@@ -578,3 +600,170 @@ class Upsample2x(nn.Module):
 
     def forward(self, x):
         return self.up_q(upsample2x(x))
+
+
+# ---------------------------------------------------------------------------
+# The office graphs' blocks (EfficientRep / CSPBep, RepPAN, EffiDeHead):
+# blocks.py:872-1071 of the JAX package. Their INT8 modes are not ported.
+
+
+def _no_quant(quant: bool, kind: str):
+    if quant:
+        raise NotImplementedError(
+            f"the INT8 modes of the office graphs' blocks ({kind}) are not ported yet "
+            f"(ROADMAP Queue 1, export and FLOPs, and S and the office graphs in int8)")
+
+
+class RepBlock(nn.Module):
+    """A chain of n RepVGG blocks: conv1 (cin -> cout), then block{i}. It
+    stays multi-branch under repopt, as in JAX (graph.py:287-288 makes
+    RepVGGBlock and MPRep rows plain only)."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1, deploy: bool = False,
+                 quant: bool = False, calibrate: bool = False):
+        super().__init__()
+        _no_quant(quant, "RepBlock")
+        self.n = n
+        self.conv1 = RepVGGBlock(cin, cout, deploy=deploy)
+        for i in range(n - 1):
+            self.add_module(f"block{i}", RepVGGBlock(cout, cout, deploy=deploy))
+
+    def forward(self, x):
+        x = self.conv1(x)
+        for i in range(self.n - 1):
+            x = getattr(self, f"block{i}")(x)
+        return x
+
+
+class BottleRep(nn.Module):
+    """Two basic blocks and, where cin == cout, the identity weighted by a
+    learnable `alpha` of shape (1,) (the reference's weight=True, which every
+    BottleRep of a BepC3 takes). basic 'repvgg' takes RepVGG blocks
+    (yolov6-m), 'conv' the 3x3 conv-BN-SiLU ConvWrapper (yolov6-l)."""
+
+    def __init__(self, cin: int, cout: int, basic: str = "repvgg", deploy: bool = False,
+                 quant: bool = False, calibrate: bool = False):
+        super().__init__()
+        _no_quant(quant, "BottleRep")
+        if basic == "repvgg":
+            self.conv1 = RepVGGBlock(cin, cout, deploy=deploy)
+            self.conv2 = RepVGGBlock(cout, cout, deploy=deploy)
+        else:
+            self.conv1 = ConvWrapper(cin, cout, deploy=deploy)
+            self.conv2 = ConvWrapper(cout, cout, deploy=deploy)
+        if cin == cout:
+            self.alpha = nn.Parameter(torch.ones(1))
+
+    def forward(self, x):
+        y = self.conv2(self.conv1(x))
+        if hasattr(self, "alpha"):
+            return y + self.alpha.to(x.dtype) * x
+        return y
+
+
+def bepc3_chain_len(n: int) -> int:
+    """BottleRep count in a BepC3 of repeat n: 1 + max(n // 2 - 1, 0)."""
+    return 1 + max(n // 2 - 1, 0)
+
+
+class BepC3(nn.Module):
+    """CSP block: 1x1 cv1 and cv2 (conv-BN-SiLU) to c_ = cout * e, a
+    BottleRep chain on cv1's branch, concat [chain, cv2], 1x1 cv3. n is the
+    config's repeat count, before the halving of bepc3_chain_len."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1, e: float = 0.5,
+                 basic: str = "repvgg", deploy: bool = False, quant: bool = False,
+                 calibrate: bool = False):
+        super().__init__()
+        _no_quant(quant, "BepC3")
+        c_ = int(cout * e)
+        cv = _convish(deploy)
+        self.cv1 = cv(cin, c_, 1, act="silu")
+        self.cv2 = cv(cin, c_, 1, act="silu")
+        self.chain = bepc3_chain_len(n)
+        self.m_conv1 = BottleRep(c_, c_, basic, deploy=deploy)
+        for i in range(self.chain - 1):
+            self.add_module(f"m_block{i}", BottleRep(c_, c_, basic, deploy=deploy))
+        self.cv3 = cv(2 * c_, cout, 1, act="silu")
+
+    def forward(self, x):
+        m = self.m_conv1(self.cv1(x))
+        for i in range(self.chain - 1):
+            m = getattr(self, f"m_block{i}")(m)
+        return self.cv3(torch.cat([m, self.cv2(x)], 1))
+
+
+class SimSPPF(nn.Module):
+    """SPPF with ReLU cells (conv-BN-ReLU 1x1 in and out)."""
+
+    def __init__(self, cin: int, cout: int, k: int = 5, deploy: bool = False,
+                 quant: bool = False, calibrate: bool = False):
+        super().__init__()
+        _no_quant(quant, "SimSPPF")
+        c_ = cin // 2
+        self.k = k
+        cv = _convish(deploy)
+        self.cv1 = cv(cin, c_, 1, act="relu")
+        self.cv2 = cv(4 * c_, cout, 1, act="relu")
+
+    def forward(self, x):
+        x = self.cv1(x)
+        y1 = max_pool_same(x, self.k)
+        y2 = max_pool_same(y1, self.k)
+        y3 = max_pool_same(y2, self.k)
+        return self.cv2(torch.cat([x, y1, y2, y3], 1))
+
+
+class TransposeUp(nn.Module):
+    """2x upsample by a biased ConvTranspose2d with kernel = stride = 2: no
+    two output blocks overlap, so out[2y+u, 2x+v] = W[u, v]^T x[y, x] + b.
+    `weight` is held [cout, cin, 2, 2], the OIHW order of the bridge's other
+    kernels (the JAX kernel is [2, 2, cin, cout]); it is the same in train
+    and deploy form."""
+
+    def __init__(self, cin: int, cout: int, deploy: bool = False, quant: bool = False,
+                 calibrate: bool = False):
+        super().__init__()
+        _no_quant(quant, "Transpose")
+        self.weight = nn.Parameter(torch.empty(cout, cin, 2, 2))
+        bound = 1.0 / math.sqrt(4 * cin)
+        nn.init.uniform_(self.weight, -bound, bound)
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight.transpose(0, 1).to(x.dtype),
+                                  self.bias.to(x.dtype), stride=2)
+
+
+class Head_Effide(nn.Module):
+    """One level of the Efficient Decoupled Head -> (stem feat, sigmoid(cls),
+    raw DFL reg): 1x1 stem, then 3x3 cls_conv -> 1x1 cls_pred and 3x3
+    reg_conv -> 1x1 reg_pred, every conv cin wide. Train form: zero pred
+    kernels, cls bias at the 1e-2 prior, reg bias 1.0, outputs in f32;
+    deploy form: outputs in the model dtype (as Head_DepthUni)."""
+
+    def __init__(self, cin: int, reg_max: int = 16, nc: int = 80, deploy: bool = False,
+                 quant: bool = False, calibrate: bool = False):
+        super().__init__()
+        _no_quant(quant, "Head_Effide")
+        self.deploy = deploy
+        cv = _convish(deploy)
+        self.stem = cv(cin, cin, 1, act="silu")
+        self.cls_conv = cv(cin, cin, 3, act="silu")
+        self.cls_pred = nn.Conv2d(cin, nc, 1)
+        self.reg_conv = cv(cin, cin, 3, act="silu")
+        self.reg_pred = nn.Conv2d(cin, 4 * (reg_max + 1), 1)
+        if not deploy:
+            prior = 1e-2
+            nn.init.zeros_(self.cls_pred.weight)
+            nn.init.constant_(self.cls_pred.bias, -math.log((1 - prior) / prior))
+            nn.init.zeros_(self.reg_pred.weight)
+            nn.init.constant_(self.reg_pred.bias, 1.0)
+
+    def forward(self, x):
+        x = self.stem(x)
+        cls = self.cls_pred(self.cls_conv(x))
+        reg = self.reg_pred(self.reg_conv(x))
+        if self.deploy:
+            return x, torch.sigmoid(cls), reg
+        return x, torch.sigmoid(cls.float()), reg.float()

@@ -1,12 +1,14 @@
 """Graph-spec parser and the save-list graph executor (train and deploy forms).
 
 `LayerSpec`, `make_divisible`, `parse_graph` and `graph_from_yaml` are a
-copy of mafyolo_tpu/models/graph.py:28-166, cut to the row kinds of the
-MAF-YOLO graphs and of the reference-format yaml graphs that SimOTA and
-repopt users bring (Conv, SimConv, Head_simota); the office rows are not
-ported. tests/test_torch_graph.py pins the parse equal to the JAX one for
-N, S, M and such a yaml. The executor walks the layers in order and keeps the outputs that later
-rows read (the `save` set), like the JAX GraphNet.
+copy of mafyolo_tpu/models/graph.py:28-166: the row kinds of the MAF-YOLO
+graphs, of the reference-format yaml graphs that SimOTA and repopt users
+bring (Conv, SimConv, Head_simota) and of the office graphs
+(models/office.py: RepBlock, BepC3, SimSPPF, Transpose, Head_Effide).
+tests/test_torch_graph.py pins the parse equal to the JAX one for N, S, M
+and such a yaml, tests/test_torch_office.py for the office graphs. The
+executor walks the layers in order and keeps the outputs that later rows
+read (the `save` set), like the JAX GraphNet.
 """
 from __future__ import annotations
 
@@ -104,6 +106,32 @@ def parse_graph(graph: dict, nc: int, ch_in: int = 3):
             c2 = make_divisible(args[0] * gw, 8)
             kw = dict(cin=c1, cout=c2,
                       reg_max=int(args[1]) if len(args) > 1 else 0, nc=nc)
+        elif kind == "RepBlock":
+            # office stage block; office graphs are emitted pre-scaled
+            # (models/office.py), so channels are taken verbatim
+            c1 = cin_of(frm[0], i)
+            c2 = int(args[0])
+            kw = dict(cin=c1, cout=c2, n=n)
+            n = 1
+        elif kind == "BepC3":
+            c1 = cin_of(frm[0], i)
+            c2 = int(args[0])
+            kw = dict(cin=c1, cout=c2, n=n,
+                      e=float(args[1]) if len(args) > 1 else 0.5,
+                      basic=str(args[2]) if len(args) > 2 else "repvgg")
+            n = 1
+        elif kind == "SimSPPF":
+            c1 = cin_of(frm[0], i)
+            c2 = int(args[0])
+            kw = dict(cin=c1, cout=c2, k=args[1] if len(args) > 1 else 5)
+        elif kind == "Transpose":
+            c1 = cin_of(frm[0], i)
+            c2 = int(args[0])
+            kw = dict(cin=c1, cout=c2)
+        elif kind == "Head_Effide":
+            c1 = cin_of(frm[0], i)
+            c2 = c1
+            kw = dict(cin=c1, reg_max=int(args[0]), nc=nc)
         elif kind == "Out":
             out_frm = tuple(x % i for x in frm)
             c2 = ch[-1]
@@ -143,6 +171,12 @@ _BLOCK_CTORS = {
     "ConvWrapper": B.ConvWrapper,
     "Head_DepthUni": B.Head_DepthUni,
     "Head_simota": B.Head_Simota,
+    # the office graphs (models/office.py)
+    "RepBlock": B.RepBlock,
+    "BepC3": B.BepC3,
+    "SimSPPF": B.SimSPPF,
+    "Transpose": B.TransposeUp,
+    "Head_Effide": B.Head_Effide,
 }
 
 
@@ -160,8 +194,9 @@ class GraphNet(nn.Module):
     quant (deploy only) builds the blocks' quantizers (models/blocks.py),
     in calib mode with calibrate, and the neck upsamples as Upsample2x
     modules with an output quantizer (graph.py:272-273 of the JAX package).
-    plain_rep (train form) builds RepVGGBlock and MPRep in their plain
-    RealVGG form, the graph that training_mode='repopt' trains. A
+    plain_rep (train form) builds RepVGGBlock and MPRep rows in their plain
+    RealVGG form, the graph that training_mode='repopt' trains (a RepBlock
+    row's blocks stay multi-branch, as in JAX). A
     Head_simota level gives the raw (cls, reg, obj) maps in place of
     (feat, cls, reg).
     """
@@ -182,7 +217,8 @@ class GraphNet(nn.Module):
             kw = spec.kw
             if "cin" not in kw:   # Conv rows infer cin from their source
                 src = spec.frm[0]
-                kw["cin"] = specs[src if src >= 0 else spec.idx + src].cout
+                src = src if src >= 0 else spec.idx + src
+                kw["cin"] = specs[src].cout if src >= 0 else 3   # layer 0: the image
             if plain_rep and not deploy and spec.kind in ("RepVGGBlock", "MPRep"):
                 kw["plain"] = True
             self.add_module(f"layer{spec.idx}", ctor(deploy=deploy, **kw, **q))

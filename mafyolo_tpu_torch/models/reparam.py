@@ -1,10 +1,12 @@
 """Re-parameterization as numpy folds: train-form variables -> deploy tree.
 
 A copy of the framework-free folds of mafyolo_tpu/models/reparam.py:26-262
-for the block kinds of the MAF graphs and the reference-format yaml rows
-Conv, SimConv and Head_simota, plain (repopt) RepVGG blocks included
-(fold_stem_s2d is left out: the port has no s2d stem; the office blocks are
-not ported). The input is the JAX tree layout, {'params', 'batch_stats'}
+for the block kinds of the MAF graphs, the reference-format yaml rows
+Conv, SimConv and Head_simota and the office graphs (RepBlock, BepC3 of
+either basic block with its `alpha` carried, SimSPPF, Transpose,
+Head_Effide), plain (repopt) RepVGG blocks included, and fold_replk of
+ReparamLargeKernelConv (fold_stem_s2d is left out: the port has no s2d
+stem). The input is the JAX tree layout, {'params', 'batch_stats'}
 of numpy arrays with HWIO kernels (utils/bridge.py:state_dict_to_train_variables
 makes it from a train-form state_dict); the output is the folded deploy tree
 that utils/bridge.py:folded_to_state_dict loads. tests/test_torch_train_model.py
@@ -16,7 +18,7 @@ from typing import Dict
 
 import numpy as np
 
-from mafyolo_tpu_torch.models.blocks import DILATED_BRANCHES
+from mafyolo_tpu_torch.models.blocks import DILATED_BRANCHES, bepc3_chain_len
 
 BN_EPS = 1e-3
 
@@ -109,6 +111,14 @@ def fold_unireplk(p, s, k: int):
     return {"fused": {"conv": {"kernel": kern, "bias": bias}}}
 
 
+def fold_replk(p, s, k: int, small_k: int):
+    """ReparamLargeKernelConv: lk + small branch (centre-padded) -> one DW conv."""
+    kern, bias = fuse_conv_bn(p["lk"]["conv"], p["lk"]["bn"], s["lk"]["bn"])
+    sk, sb = fuse_conv_bn(p["small"]["conv"], p["small"]["bn"], s["small"]["bn"])
+    return {"fused": {"conv": {"kernel": kern + _pad_kernel_center(sk, k),
+                               "bias": bias + sb}}}
+
+
 def _fold_dbu(p, s, kw):
     return {
         "expand": _fold_cbn(p["expand"], s["expand"]),
@@ -139,6 +149,40 @@ def _fold_block(kind: str, kw: Dict, p, s):
     if kind == "Head_simota":
         out = {name: _fold_cbn(p[name], s[name]) for name in ("stem", "cls_conv", "reg_conv")}
         for pred in ("cls_pred", "reg_pred", "obj_pred"):
+            out[pred] = {"kernel": _np(p[pred]["kernel"]), "bias": _np(p[pred]["bias"])}
+        return out
+    if kind == "RepBlock":
+        out = {"conv1": fold_repvgg(p["conv1"], s["conv1"], kw["cin"], kw["cout"], 1)}
+        for i in range(kw["n"] - 1):
+            out[f"block{i}"] = fold_repvgg(p[f"block{i}"], s[f"block{i}"], kw["cout"],
+                                           kw["cout"], 1)
+        return out
+    if kind == "BepC3":
+        c_ = int(kw["cout"] * kw["e"])
+
+        def fold_bottlerep(bp, bs):
+            o = {}
+            for name in ("conv1", "conv2"):
+                if kw["basic"] == "repvgg":
+                    o[name] = fold_repvgg(bp[name], bs[name], c_, c_, 1)
+                else:   # ConvWrapper: conv-BN-SiLU, the BN fold only
+                    o[name] = {"block": _fold_cbn(bp[name]["block"], bs[name]["block"])}
+            if "alpha" in bp:
+                o["alpha"] = _np(bp["alpha"])
+            return o
+
+        out = {name: _fold_cbn(p[name], s[name]) for name in ("cv1", "cv2", "cv3")}
+        out["m_conv1"] = fold_bottlerep(p["m_conv1"], s["m_conv1"])
+        for i in range(bepc3_chain_len(kw["n"]) - 1):
+            out[f"m_block{i}"] = fold_bottlerep(p[f"m_block{i}"], s[f"m_block{i}"])
+        return out
+    if kind == "SimSPPF":
+        return {"cv1": _fold_cbn(p["cv1"], s["cv1"]), "cv2": _fold_cbn(p["cv2"], s["cv2"])}
+    if kind == "Transpose":
+        return {"kernel": _np(p["kernel"]), "bias": _np(p["bias"])}   # nothing to fold
+    if kind == "Head_Effide":
+        out = {name: _fold_cbn(p[name], s[name]) for name in ("stem", "cls_conv", "reg_conv")}
+        for pred in ("cls_pred", "reg_pred"):
             out[pred] = {"kernel": _np(p[pred]["kernel"]), "bias": _np(p[pred]["bias"])}
         return out
     if kind == "Head_DepthUni":

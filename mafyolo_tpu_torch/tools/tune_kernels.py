@@ -98,7 +98,7 @@ def frontend(dev):
     for name in ("maf-yolo-n", "maf-yolo-s", "maf-yolo-m"):
         fw = _model(name, dev).fe_weights
         want = FE.frontend_plain(x[:2], fw)
-        out = torch.empty((BATCH, IMG // 4, IMG // 4, fw.cfg.c2), dtype=torch.bfloat16,
+        out = torch.empty((BATCH, IMG // 4, IMG // 4, fw.cfg.cout), dtype=torch.bfloat16,
                           device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         print(json.dumps({"model": name, "picked": FE.frontend_plan(fw), "picked_ms": cuda_ms(

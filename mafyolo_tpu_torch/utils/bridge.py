@@ -8,7 +8,11 @@ equal that tree's keys, so every map is leaf for leaf, under the prefix
   params  .../kernel -> .weight (HWIO -> OIHW, depthwise [k,k,1,C] ->
           [C,1,k,k] included); .../scale (BatchNorm gamma) -> .weight;
           .../bias -> .bias
+          .../alpha (an office BottleRep's identity weight) -> .alpha
   batch_stats  .../mean -> .running_mean; .../var -> .running_var
+
+An office Transpose kernel [2, 2, cin, cout] maps to its module's `weight`
+held [cout, cin, 2, 2], like any other kernel (models/blocks.py:TransposeUp).
 
 Folded deploy trees (mafyolo_tpu/models/reparam.py:fold_variables) have
 params only; train-form trees have both collections. The INT8 'quant'
@@ -26,7 +30,8 @@ import torch
 from mafyolo_tpu_torch.models.graph import GraphNet
 
 _TO_TORCH = {("params", "kernel"): "weight", ("params", "scale"): "weight",
-             ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
+             ("params", "bias"): "bias", ("params", "alpha"): "alpha",
+             ("batch_stats", "mean"): "running_mean",
              ("batch_stats", "var"): "running_var"}
 
 
@@ -74,8 +79,8 @@ def state_dict_to_train_variables(sd) -> Dict:
             col, key = "batch_stats", "mean"
         elif leaf == "running_var":
             col, key = "batch_stats", "var"
-        elif leaf == "bias":
-            col, key = "params", "bias"
+        elif leaf in ("bias", "alpha"):
+            col, key = "params", leaf
         elif leaf == "weight" and arr.ndim == 4:
             col, key, arr = "params", "kernel", arr.transpose(2, 3, 1, 0)
         elif leaf == "weight" and arr.ndim == 1:
@@ -124,7 +129,7 @@ def _random_leaf(rng, leaf: str, shape, weight_gain: float):
         return rng.uniform(-bound, bound, shape)
     if leaf == "weight":                       # BatchNorm gamma
         return rng.uniform(0.5, 1.5, shape)
-    if leaf == "running_var":
+    if leaf in ("running_var", "alpha"):
         return rng.uniform(0.5, 2.0, shape)
     return rng.uniform(-0.2, 0.2, shape)       # biases, BN beta, running_mean
 
@@ -155,7 +160,7 @@ def random_train_variables(specs, seed: int, plain_rep: bool = False) -> Dict:
     nonzero: conv weights as in random_folded_variables, the cls/reg preds
     included (the JAX init zeroes them, which zeroes every gradient upstream
     of the heads on a first step), BN gamma U(0.5, 1.5), beta and running
-    mean U(+-0.2), running var U(0.5, 2). plain_rep: the tree of the plain
+    mean U(+-0.2), running var and a BottleRep's alpha U(0.5, 2). plain_rep: the tree of the plain
     (repopt) train form."""
     net = GraphNet(specs, frozenset(), (), deploy=False, plain_rep=plain_rep)
     return state_dict_to_train_variables(_random_state_dict(net, seed, 1.0))

@@ -16,7 +16,7 @@ import torch
 
 from mafyolo_tpu_torch.core.evaler import Evaler
 from mafyolo_tpu_torch.data.datasets import DetectionDataset
-from mafyolo_tpu_torch.models.blocks import DWConv
+from mafyolo_tpu_torch.models.blocks import DWConv, bepc3_chain_len
 from mafyolo_tpu_torch.models.graph import parse_graph
 from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
 from mafyolo_tpu_torch.ops import greedy_nms as G
@@ -129,14 +129,16 @@ def labels_from_detections(preds, dataset, min_score=0.1, max_per_class=100):
 
 
 def evaler(name, folded, half, device):
-    """An Evaler of `name` on the folded tree, NC classes."""
+    """An Evaler of `name` (a zoo name or a graph dict) on the folded tree,
+    NC classes."""
     ev = Evaler(half=half, device=device)
     ev.init_model(name, folded, nc=NC, folded=True)
     return ev
 
 
-def random_deploy(name, dev):
-    """Random folded weights (seed 0, gain 1.5) whose heads give detections.
+def random_deploy(name, dev, weight_gain=1.5):
+    """Random folded weights (seed 0, gain 1.5) whose heads give detections;
+    `name` is a zoo name or a graph dict (an office graph, models/office.py).
 
     Gain 1.5 keeps activations image-dependent through the 34 layers. Random
     heads are not peaky: an anchor whose feature is large lights up many
@@ -148,8 +150,9 @@ def random_deploy(name, dev):
     tree and the conf at which about 2500 pairs per image pass, which
     overflows compact_k = 512. The other classes get a zero kernel and a bias
     of -30, and never fire."""
-    specs, _, head_layers = parse_graph(MODEL_ZOO[name], nc=NC)
-    folded = random_folded_variables(specs, seed=0, weight_gain=1.5)
+    specs, _, head_layers = parse_graph(MODEL_ZOO[name] if isinstance(name, str) else name,
+                                        nc=NC)
+    folded = random_folded_variables(specs, seed=0, weight_gain=weight_gain)
     net = folded["params"]["net"]
     cal = evaler(name, folded, False, dev).forward(images(10, 4).to(dev))
     live = []
@@ -315,21 +318,61 @@ def _ref_unireplk(p, s, prefix, out):
     _ref_bn(p["post_bn"], s["post_bn"], f"{prefix}.norm", out)
 
 
-def reference_state_dict(variables, specs):
+def _ref_bottlerep(p, s, prefix, out, basic):
+    for name in ("conv1", "conv2"):
+        if basic == "repvgg":
+            _ref_repvgg(p[name], s[name], f"{prefix}.{name}", out, "idbn" in p[name])
+        else:
+            _ref_convbn(p[name]["block"], s[name]["block"], f"{prefix}.{name}.block", out)
+    if "alpha" in p:
+        out[f"{prefix}.alpha"] = p["alpha"]
+
+
+def reference_state_dict(variables, specs, prefixes=None):
     """A train-form {'params','batch_stats'} tree (numpy, HWIO) -> the
-    reference's state_dict of the same weights ('backbone.{i}.' keys, OIHW,
-    torch tensors): the inverse of utils/torch_bridge.py:convert_layer for
-    the yaml graphs' kinds, with the reference's key quirks (rbr_identity
-    only where cin == cout at stride 1, dil_conv_k{k}_{r} / dil_bn_k{k}_{r},
-    cls_conv_s / reg_conv_s, MPRep's conv1 / conv2)."""
+    reference's state_dict of the same weights (OIHW, torch tensors): the
+    inverse of utils/torch_bridge.py:convert_layer, with the reference's key
+    quirks (rbr_identity only where cin == cout at stride 1,
+    dil_conv_k{k}_{r} / dil_bn_k{k}_{r}, cls_conv_s / reg_conv_s, MPRep's
+    conv1 / conv2, a ConvTranspose2d weight [I, O, kH, kW], the office head's
+    per-role ModuleLists). Layer i's keys sit under 'backbone.{i}' or, with
+    prefixes (models/office.py:OFFICE_TORCH_PREFIXES), under prefixes[i]."""
     params, stats = variables["params"]["net"], variables["batch_stats"]["net"]
     out = {}
     for spec in specs:
-        name, kw, pfx = f"layer{spec.idx}", spec.kw, f"backbone.{spec.idx}"
+        name, kw = f"layer{spec.idx}", spec.kw
         if name not in params:
             continue
+        pfx = prefixes[spec.idx] if prefixes else f"backbone.{spec.idx}"
         p, s = params[name], stats.get(name, {})
-        if spec.kind == "ConvWrapper":
+        if spec.kind in ("Conv", "SimConv"):
+            _ref_convbn(p["block"], s["block"], pfx, out)
+        elif spec.kind == "RepBlock":
+            _ref_repvgg(p["conv1"], s["conv1"], f"{pfx}.conv1", out, kw["cin"] == kw["cout"])
+            for i in range(kw["n"] - 1):
+                _ref_repvgg(p[f"block{i}"], s[f"block{i}"], f"{pfx}.block.{i}", out, True)
+        elif spec.kind == "BepC3":
+            for cv in ("cv1", "cv2", "cv3"):
+                _ref_convbn(p[cv], s[cv], f"{pfx}.{cv}", out)
+            _ref_bottlerep(p["m_conv1"], s["m_conv1"], f"{pfx}.m.conv1", out, kw["basic"])
+            for i in range(bepc3_chain_len(kw["n"]) - 1):
+                _ref_bottlerep(p[f"m_block{i}"], s[f"m_block{i}"], f"{pfx}.m.block.{i}", out,
+                               kw["basic"])
+        elif spec.kind == "SimSPPF":
+            for cv in ("cv1", "cv2"):
+                _ref_convbn(p[cv], s[cv], f"{pfx}.{cv}", out)
+        elif spec.kind == "Transpose":
+            out[f"{pfx}.upsample_transpose.weight"] = np.ascontiguousarray(
+                np.transpose(np.asarray(p["kernel"], np.float32), (2, 3, 0, 1)))
+            out[f"{pfx}.upsample_transpose.bias"] = p["bias"]
+        elif spec.kind == "Head_Effide":
+            det, j = pfx.split(":")
+            _ref_convbn(p["stem"], s["stem"], f"{det}.stems.{j}", out)
+            for role in ("cls", "reg"):
+                _ref_convbn(p[f"{role}_conv"], s[f"{role}_conv"], f"{det}.{role}_convs.{j}", out)
+                out[f"{det}.{role}_preds.{j}.weight"] = _ref_kernel(p[f"{role}_pred"]["kernel"])
+                out[f"{det}.{role}_preds.{j}.bias"] = p[f"{role}_pred"]["bias"]
+        elif spec.kind == "ConvWrapper":
             _ref_convbn(p["block"], s["block"], f"{pfx}.block", out)
         elif spec.kind == "RepVGGBlock":
             _ref_repvgg(p, s, pfx, out, kw["cin"] == kw["cout"] and kw["stride"] == 1)

@@ -23,8 +23,20 @@ Name correspondence per block (ours <- reference):
                        cls_pred<-cls_pred, reg_dw<-reg_conv, reg_proj<-reg_conv_s,
                        reg_pred<-reg_pred
 
-The office graphs' kinds (RepBlock, BepC3, SimSPPF, Transpose, Head_Effide)
-raise until the office graphs are ported.
+  RepBlock:            conv1 <- conv1, block{i} <- block.{i}
+  BepC3:               cv1..cv3 <- cv1..cv3, m_conv1 <- m.conv1,
+                       m_block{i} <- m.block.{i}; a BottleRep's conv1/conv2
+                       are RepVGG blocks or ConvWrappers, alpha <- alpha
+  SimSPPF:             cv1, cv2 <- cv1, cv2
+  Transpose:           kernel [kH,kW,I,O] <- upsample_transpose.weight
+                       [I,O,kH,kW], bias <- upsample_transpose.bias
+  Head_Effide:         the level-j entries of the head's per-role
+                       ModuleLists (prefix "detect:{j}"): stem <- stems.{j},
+                       cls_conv <- cls_convs.{j}, reg_conv <- reg_convs.{j},
+                       cls_pred <- cls_preds.{j}, reg_pred <- reg_preds.{j}
+
+A YOLOv6 office checkpoint's keys are not 'backbone.{i}': pass
+models/office.py:OFFICE_TORCH_PREFIXES to state_dict_to_variables.
 """
 from __future__ import annotations
 
@@ -32,11 +44,10 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from mafyolo_tpu_torch.models.blocks import DILATED_BRANCHES
+from mafyolo_tpu_torch.models.blocks import DILATED_BRANCHES, bepc3_chain_len
 
 # Head stem width of layer 31 -> graph (torch_bridge.py:232-234 of the JAX package)
 GRAPH_BY_WIDTH = {128: "maf-yolo-n", 192: "maf-yolo-s", 256: "maf-yolo-m"}
-OFFICE_KINDS = ("RepBlock", "BepC3", "SimSPPF", "Transpose", "Head_Effide")
 
 
 def _conv_kernel(w) -> np.ndarray:
@@ -139,15 +150,61 @@ def convert_layer(sd: Dict, spec, torch_prefix: str) -> Tuple[Dict, Dict]:
                 sd, f"{torch_prefix}.{role}_conv_s")
             p[f"{role}_pred"] = _take_conv_raw(sd, f"{torch_prefix}.{role}_pred")
         return p, s
-    if kind in OFFICE_KINDS:
-        raise NotImplementedError(
-            f"a .pt of the office graphs ({kind}) is not read yet: the office graphs are "
-            f"not ported (ROADMAP Queue 1, remaining training variants)")
+    if kind == "RepBlock":
+        p, s = {}, {}
+        p["conv1"], s["conv1"] = _repvgg(sd, f"{torch_prefix}.conv1", kw["cin"] == kw["cout"])
+        for i in range(kw["n"] - 1):
+            p[f"block{i}"], s[f"block{i}"] = _repvgg(sd, f"{torch_prefix}.block.{i}", True)
+        return p, s
+    if kind == "BepC3":
+        p, s = {}, {}
+        for cv in ("cv1", "cv2", "cv3"):
+            p[cv], s[cv] = _take_convbn(sd, f"{torch_prefix}.{cv}")
+        p["m_conv1"], s["m_conv1"] = _bottlerep(sd, f"{torch_prefix}.m.conv1", kw["basic"])
+        for i in range(bepc3_chain_len(kw["n"]) - 1):
+            p[f"m_block{i}"], s[f"m_block{i}"] = _bottlerep(
+                sd, f"{torch_prefix}.m.block.{i}", kw["basic"])
+        return p, s
+    if kind == "SimSPPF":
+        p1, s1 = _take_convbn(sd, f"{torch_prefix}.cv1")
+        p2, s2 = _take_convbn(sd, f"{torch_prefix}.cv2")
+        return {"cv1": p1, "cv2": p2}, {"cv1": s1, "cv2": s2}
+    if kind == "Transpose":
+        w = np.asarray(sd[f"{torch_prefix}.upsample_transpose.weight"], np.float32)
+        return {"kernel": np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))),
+                "bias": np.asarray(sd[f"{torch_prefix}.upsample_transpose.bias"],
+                                   np.float32)}, {}
+    if kind == "Head_Effide":
+        det, j = torch_prefix.split(":")
+        p, s = {}, {}
+        p["stem"], s["stem"] = _take_convbn(sd, f"{det}.stems.{j}")
+        for role in ("cls", "reg"):
+            p[f"{role}_conv"], s[f"{role}_conv"] = _take_convbn(sd, f"{det}.{role}_convs.{j}")
+            p[f"{role}_pred"] = _take_conv_raw(sd, f"{det}.{role}_preds.{j}")
+        return p, s
     raise NotImplementedError(kind)
 
 
-def state_dict_to_variables(sd: Dict, specs) -> Dict:
-    """A reference state_dict of the yaml graph -> {'params','batch_stats'}."""
+def _bottlerep(sd, pfx, basic: str):
+    """A BottleRep: two RepVGG blocks (identity where the file has one) or
+    two ConvWrappers, and its alpha where the file has one."""
+    p, s = {}, {}
+    for name in ("conv1", "conv2"):
+        if basic == "repvgg":
+            p[name], s[name] = _repvgg(sd, f"{pfx}.{name}", True)
+        else:
+            cp, cs = _take_convbn(sd, f"{pfx}.{name}.block")
+            p[name], s[name] = {"block": cp}, {"block": cs}
+    if f"{pfx}.alpha" in sd:
+        p["alpha"] = np.asarray(sd[f"{pfx}.alpha"], np.float32)
+    return p, s
+
+
+def state_dict_to_variables(sd: Dict, specs, prefixes: Dict = None) -> Dict:
+    """A reference state_dict -> {'params','batch_stats'}. The keys of layer
+    i sit under 'backbone.{i}' (the yaml graphs) unless `prefixes` maps i to
+    its prefix (models/office.py:OFFICE_TORCH_PREFIXES for a YOLOv6 office
+    checkpoint)."""
     sd = {k: (v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v))
           for k, v in sd.items()}
     params, stats = {}, {}
@@ -155,7 +212,8 @@ def state_dict_to_variables(sd: Dict, specs) -> Dict:
         if spec.kind in ("Upsample", "Concat", "Out"):
             continue
         name = f"layer{spec.idx}"
-        p, s = convert_layer(sd, spec, f"backbone.{spec.idx}")
+        p, s = convert_layer(sd, spec, prefixes[spec.idx] if prefixes
+                             else f"backbone.{spec.idx}")
         params[name] = p
         if s:
             stats[name] = s

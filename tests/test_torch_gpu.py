@@ -63,6 +63,76 @@ def test_frontend_kernel_matches_plain(cuda_device, name, hw, big_bias):
     assert F.frontend_forward.launches == before + 2
 
 
+def _office_frontend_weights(name, device):
+    """Packed layers 0-1 of an office graph (models/office.py), every conv
+    bias in U(0.2, 1)."""
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.models.office import office_config_graph
+    from mafyolo_tpu_torch.utils.bridge import folded_to_state_dict, random_folded_variables
+    graph = office_config_graph(name)
+    model = build_model(graph, nc=7, deploy=True)
+    model.load_state_dict(folded_to_state_dict(random_folded_variables(model.specs, seed=3)))
+    model = model.to(device).eval()
+    gen = torch.Generator(device=device).manual_seed(12)
+    for layer in (model.net.layer0, model.net.layer1):
+        for m in layer.modules():
+            if isinstance(m, nn.Conv2d):
+                m.bias.data = torch.rand(m.bias.shape, generator=gen, device=device) * 0.8 + 0.2
+    return F.frontend_build(model.net, fuse_l2=False)
+
+
+@pytest.mark.parametrize("name", ["yolov6n-office", "yolov6m-office"])
+@pytest.mark.parametrize("shape", [(3, 256, 64), (3, 200, 168), (1, 72, 264), (5, 4, 8)])
+def test_frontend_layers01_kernel_matches_plain(cuda_device, name, shape):
+    """The layers-0-1 mode (depth 0) at office N (c0 16, c1 32) and M (48,
+    96) widths: an odd batch, biases in U(0.2, 1) (a relu(b0) outside the
+    image reaching layer 1 would show), tiles that do not divide H/4 and
+    W/4. f32 at 1e-3, bf16 at the JAX kernel tests' tolerance; one launch
+    each, and the output is layer 1's c1 channels."""
+    fw = _office_frontend_weights(name, cuda_device)
+    assert fw.cfg.depth == 0 and fw.cfg.cout == fw.cfg.c1
+    imgs = torch.from_numpy(u8_images(2, (*shape, 3))).to(cuda_device)
+    before = F.frontend_forward.launches
+    want = F.frontend_plain(imgs, fw)
+    assert want.shape == (shape[0], shape[1] // 4, shape[2] // 4, fw.cfg.c1)
+    torch.testing.assert_close(F.frontend_forward(imgs, fw), want, atol=1e-3, rtol=1e-3)
+    got16 = F.frontend_forward(imgs, fw, torch.bfloat16).float()
+    torch.testing.assert_close(got16, want, atol=0.05, rtol=0.05)
+    assert (got16 - want).abs().mean() < 0.01 and want.std() > 0.05
+    assert F.frontend_forward.launches == before + 2
+
+
+def maf_frontend_digest(name, device, dtype):
+    """sha256 (16 hex digits) of the layers-0-2 kernel's output bytes for
+    `name`'s packed weights (_frontend_weights with big biases) on a fixed
+    3x200x168 batch."""
+    import hashlib
+    fw = _frontend_weights(name, device, True)
+    imgs = torch.from_numpy(u8_images(5, (3, 200, 168, 3))).to(device)
+    out = F.frontend_forward(imgs, fw, dtype).cpu().contiguous()
+    return hashlib.sha256(out.view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+# The MAF mode's output digests before the layers-0-1 mode was added (the
+# kernels of commit 6e67d34 on an NVIDIA H100 80GB HBM3): the mode is a
+# template flag, and the full mode's output must stay the same to the bit.
+MAF_FRONTEND_DIGESTS = {
+    ("maf-yolo-n", "torch.float32"): "3234888d02e911ff",
+    ("maf-yolo-n", "torch.bfloat16"): "10e2b546df0d8fb9",
+    ("maf-yolo-s", "torch.float32"): "63d0b3d4fd2d68b2",
+    ("maf-yolo-s", "torch.bfloat16"): "96f926d80b5615c9",
+    ("maf-yolo-m", "torch.float32"): "53958203e9c72f28",
+    ("maf-yolo-m", "torch.bfloat16"): "479ae63f16875689",
+}
+
+
+@pytest.mark.parametrize("name", ["maf-yolo-n", "maf-yolo-s", "maf-yolo-m"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_frontend_maf_mode_unchanged(cuda_device, name, dtype):
+    assert maf_frontend_digest(name, cuda_device, dtype) == \
+        MAF_FRONTEND_DIGESTS[(name, str(dtype))]
+
+
 @pytest.mark.parametrize("m", NC.SIZES)
 def test_nms_kernel_matches_plain(cuda_device, m):
     boxes, valid = NC.random_boxes(m, 8, m)

@@ -108,11 +108,15 @@ def test_ema_or_model_and_graph_by_width(tmp_path):
 
 
 def test_office_kinds_raise():
-    spec = build_model("maf-yolo-n", nc=NC).specs[0]
-    for kind in B.OFFICE_KINDS:
-        fake = type(spec)(idx=0, frm=(-1,), kind=kind, kwargs=(), cout=8)
-        with pytest.raises(NotImplementedError, match="remaining training variants"):
-            B.convert_layer({}, fake, "backbone.0")
+    """The office graphs' kinds are read (tests/test_torch_office.py holds
+    them against JAX); a kind no graph has still raises, as in JAX."""
+    from mafyolo_tpu_torch.models.office import office_config_graph
+    specs = build_model(office_config_graph("yolov6n-office"), nc=NC).specs
+    assert {s.kind for s in specs} >= {"RepBlock", "SimSPPF", "Transpose", "Head_Effide"}
+    fake = type(specs[0])(idx=0, frm=(-1,), kind="Unknown", kwargs=(), cout=8)
+    for convert in (B.convert_layer, J.convert_layer):
+        with pytest.raises(NotImplementedError, match="Unknown"):
+            convert({}, fake, "backbone.0")
 
 
 def test_evaler_from_pt_matches_jax_evaler(tmp_path):

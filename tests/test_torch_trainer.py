@@ -249,19 +249,14 @@ def test_checkpoint_helpers_match_jax(run, tmp_path):
 
 
 def test_unported_options_raise(run):
-    """Only the office graphs (their ROADMAP item named) and per-block
-    rematerialization raise NotImplementedError; SimOTA, distillation and
-    repopt are ported, and without their inputs (a teacher checkpoint,
-    cfg.model.scales) they fail as JAX's Trainer does."""
-    for kw, cfg_key in ((({}, ("build_type", "office"))), ({"remat": True}, None)):
-        _, cfg = _configs()
-        if cfg_key:
-            cfg.model.build_type = "office"
-        match = "rematerialization" if kw.get("remat") else \
-            r"^the office graphs \(build_type != 'yaml'\) is not ported yet " \
-            r"\(ROADMAP Queue 1, remaining training variants\)$"
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(_args(save_dir=str(run.root / "x"), **kw), cfg, run.data, device="cpu")
+    """Only per-block rematerialization raises NotImplementedError; the
+    office graphs (build_type 'office', tests/test_torch_office_train.py),
+    SimOTA, distillation and repopt are ported, and without their inputs (a
+    teacher checkpoint, cfg.model.scales) the last two fail as JAX's
+    Trainer does."""
+    _, cfg = _configs()
+    with pytest.raises(NotImplementedError, match="rematerialization"):
+        Trainer(_args(save_dir=str(run.root / "x"), remat=True), cfg, run.data, device="cpu")
     _, cfg = _configs()
     cfg.training_mode = "repopt"
     with pytest.raises(ValueError, match="cfg.model.scales"):

@@ -144,6 +144,17 @@ Phases, in order; any failure exits non-zero without a result line:
                 by the Trainer for an epoch with --device-aug, evaluated,
                 resumed bit for bit, its EMA served; an f32 step card
                 against CPU; an M step at bs8@640.
+ 27. export_quant  S, M and the office graphs N, M and L served in real
+                int8 at bs32@640 (export_quant_phase's docstring lists the
+                gates): calibrated on the card (f64 card against CPU),
+                every distinct int8 site bit-equal to its plain version,
+                int8_predict_fn with the int8 and NMS launches read around
+                it, the share of int8-sim detections matched, img/s beside
+                bf16, the office 3x3 stride-1 and S's and M's depthwise
+                sites timed by class; N exported by tools/export.py
+                (--end2end, none and int8) on the card, loaded, run and
+                held to the eager function bit for bit, its launches
+                counted; tools/flops.py's line for N, S and M.
 Each entry of the "kernels" line carries bound_ms, the least time the card
 could take: the larger of the bytes moved (inputs read once, outputs written
 once) over 3.35 TB/s and the operations over the peak rate of the operand
@@ -932,6 +943,7 @@ def main():
     rec = recipes_phase(dev, card)
     torch.set_grad_enabled(False)
     office = office_phase(dev, card)
+    xq = export_quant_phase(dev, card, folded)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -945,7 +957,8 @@ def main():
         office["kernel"],
         {"name": "greedy_nms", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "mafyolo_tpu/ops/pallas_nms.py:60",
-         "launches": launches["greedy_nms"] + rec["greedy_nms"] + office["launches"]["greedy_nms"],
+         "launches": launches["greedy_nms"] + rec["greedy_nms"] + office["launches"]["greedy_nms"]
+         + xq["launches"]["greedy_nms"],
          "max_abs_err": nms_err,
          "ms": nms_ms[512], "plain_ms": nms_plain_ms[512],
          "bound_ms": nms_bound["bound_ms"], "bound_by": nms_bound["bound_by"],
@@ -962,7 +975,7 @@ def main():
          "bound_ms": stem_s["bound_ms"], "bound_by": stem_s["bound_by"],
          "library_ms": stem_s["library_ms"]},
         *s_res["kernels"],
-        *quant_kernels,
+        *[dict(k, launches=k["launches"] + xq["launches"][k["name"]]) for k in quant_kernels],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -1675,6 +1688,16 @@ def _tree_items(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _tree_max_rel(got, want):
+    """The largest |got - want| / want over two amax trees' leaves (inf when
+    their paths differ)."""
+    got = {"/".join(k): float(v) for k, v in _tree_items(got)}
+    want = {"/".join(k): float(v) for k, v in _tree_items(want)}
+    if got.keys() != want.keys():
+        return float("inf")
+    return max(abs(got[k] - want[k]) / want[k] for k in want)
+
+
 def device_busy(prof):
     """(the union of the device's kernel, copy and set spans in us, the
     spans, us by name) of a torch.profiler run."""
@@ -2098,6 +2121,41 @@ def _odd_int8_sites(dev):
     return out
 
 
+def distinct_int8_cases(seen):
+    """The distinct int8 conv sites of int8_inputs' {module: (pack, input,
+    act)} (by kind, widths, k, stride, input size and activation) -> (their
+    number, the cases (tag, pack, input, act): each site with the
+    activation its launch fuses, and without it)."""
+    distinct = {}
+    for mname, (p, x, act) in seen.items():
+        distinct.setdefault((p.kind, p.cin, p.cout, p.k, p.stride, tuple(x.shape[2:]), act),
+                            (mname, p, x, act))
+    return len(distinct), [c for mname, p, x, act in distinct.values()
+                           for c in ((mname, p, x, act),) + (((mname, p, x, None),) if act
+                                                              else ())]
+
+
+def check_int8_cases(cases, what):
+    """Each case's int8 kernel (then torch's activation) against its plain
+    version bit for bit, and a second launch bit-identical -> (the largest
+    |difference| by kind, a record a case)."""
+    import torch
+
+    from mafyolo_tpu_torch.ops import quant_conv as QC
+    err, records = {"dense": 0.0, "dw": 0.0}, []
+    for tag, p, x, act in cases:
+        got, again = QC.int8_conv(x, p, act), QC.int8_conv(x, p, act)
+        want = QC.ACTS[act](QC.int8_conv_plain(x, p))
+        e = (got.float() - want.float()).abs().max().item()
+        err[p.kind] = max(err[p.kind], e)
+        records.append([tag, p.kind, list(x.shape), p.cout, p.k, p.stride, act, e])
+        check(torch.equal(got, want), f"{what}int8 {p.kind} kernel differs from plain at {tag} "
+              f"({act}): {e}")
+        check(torch.equal(got, again),
+              f"{what}int8 {p.kind} kernel: a second launch differs at {tag}")
+    return err, records
+
+
 def share_split(tag, ref, got, dec_ref, dec_got, conf=0.03, same_tol=1e-3):
     """One comparison of two int8 predicts of the same batch: the share of
     `ref`'s detections (score > 0.1) that `got` matches (match()); the
@@ -2192,11 +2250,9 @@ def quant_phase(dev, folded, card):
     check(len(amax) == 88 and min(amax.values()) > 0, f"calibration: {len(amax)} leaves, "
           f"min {min(amax.values())}")
     two = images(7, 2)
-    q_card = {"/".join(k): float(v) for k, v in _tree_items(
-        Q.ptq_calibrate(name, NC, folded, [two.to(dev)], max_batches=1, device=dev))}
-    q_cpu = {"/".join(k): float(v) for k, v in _tree_items(
-        Q.ptq_calibrate(name, NC, folded, [two], max_batches=1, device="cpu"))}
-    calib_rel = max(abs(q_card[k] - q_cpu[k]) / q_cpu[k] for k in q_cpu)
+    calib_rel = _tree_max_rel(
+        Q.ptq_calibrate(name, NC, folded, [two.to(dev)], max_batches=1, device=dev),
+        Q.ptq_calibrate(name, NC, folded, [two], max_batches=1, device="cpu"))
     t0 = time.perf_counter()
     pct = {"/".join(k): float(v) for k, v in _tree_items(Q.ptq_calibrate(
         name, NC, folded, calib, max_batches=QUANT_BATCHES, method="percentile", device=dev))}
@@ -2205,8 +2261,7 @@ def quant_phase(dev, folded, card):
          seconds=calib_s, percentile_seconds=pct_s, card_vs_cpu_max_rel=calib_rel,
          percentile_clipped=sum(pct[k] < amax[k] for k in amax),
          amax_min=min(amax.values()), amax_max=max(amax.values()))
-    check(q_card.keys() == q_cpu.keys() and calib_rel <= 1e-5,
-          f"calibration card vs CPU: max rel {calib_rel}")
+    check(calib_rel <= 1e-5, f"calibration card vs CPU: max rel {calib_rel}")
     check(pct.keys() == amax.keys() and all(0 < pct[k] <= amax[k] for k in amax),
           "percentile calibration: an amax outside (0, max]")
 
@@ -2216,28 +2271,12 @@ def quant_phase(dev, folded, card):
     kinds = [p.kind for p, _, _ in seen.values()]
     check(len(seen) == 82 and kinds.count("dense") == 66 and kinds.count("dw") == 16,
           f"int8 sites: {len(seen)} ({kinds.count('dense')} dense, {kinds.count('dw')} dw)")
-    distinct = {}
-    for mname, (p, x, act) in seen.items():
-        distinct.setdefault((p.kind, p.cin, p.cout, p.k, p.stride, tuple(x.shape[2:]), act),
-                            (mname, p, x, act))
-    # each site with the activation its launch fuses, and without it
-    cases = [c for mname, p, x, act in distinct.values()
-             for c in ((mname, p, x, act),) + (((mname, p, x, None),) if act else ())]
-    cases += _odd_int8_sites(dev)
-    conv_err = {"dense": 0.0, "dw": 0.0}
-    records = []
-    for tag, p, x, act in cases:
-        got, again = QC.int8_conv(x, p, act), QC.int8_conv(x, p, act)
-        want = QC.ACTS[act](QC.int8_conv_plain(x, p))
-        err = (got.float() - want.float()).abs().max().item()
-        conv_err[p.kind] = max(conv_err[p.kind], err)
-        records.append([tag, p.kind, list(x.shape), p.cout, p.k, p.stride, act, err])
-        check(torch.equal(got, want), f"int8 {p.kind} kernel differs from plain at {tag} "
-              f"({act}): {err}")
-        check(torch.equal(got, again), f"int8 {p.kind} kernel: a second launch differs at {tag}")
+    n_distinct, site_cases = distinct_int8_cases(seen)
+    cases = site_cases + _odd_int8_sites(dev)
+    conv_err, records = check_int8_cases(cases, "")
     n_vals, silu_diff = int8_silu_every_bf16(dev)
-    emit(phase="int8_conv_check", sites=len(distinct), cases=len(cases),
-         odd_cases=len(cases) - len(distinct) - sum(1 for *_, a in distinct.values() if a),
+    emit(phase="int8_conv_check", sites=n_distinct, cases=len(cases),
+         odd_cases=len(cases) - len(site_cases),
          max_abs_err=conv_err, fused_acts=list(QC.FUSED_ACTS), silu_bf16_values=n_vals,
          silu_bf16_differ=silu_diff, records=records)
     check(silu_diff == 0, f"fused SiLU differs from torch's on {silu_diff} bf16 values")
@@ -3309,6 +3348,256 @@ def office_train(dev, card, total):
     check(DG.dw_grad.launches == 0, "office M train step launched dw_grad")
     del model, state, step
     torch.cuda.empty_cache()
+
+
+# export_quant: S, M and the office graphs served in real int8 at bs32@640
+# (random_deploy weights, the office ones at OFFICE_GAIN), each calibrated
+# from a seed on the card over EXPORT_CALIB_BATCHES batches and served on
+# EXPORT_BATCHES more.
+EXPORT_GRAPHS = ("maf-yolo-s", "maf-yolo-m", "yolov6n-office", "yolov6m-office",
+                 "yolov6l-office")
+EXPORT_CALIB_BATCHES = 2
+EXPORT_BATCHES = 2
+# The least share of the int8-sim predict's detections (score > 0.1) that
+# the int8 predict of the same bs32 batch matches (match()), per graph: 0.6
+# x the first card run's reading, 119 / 814, 104 / 760, 151 / 1171, 233 /
+# 1309 and 357 / 704 (PERF.md §6, the office and S/M int8 entry; NVIDIA H100 80GB HBM3,
+# 700.00 W), the rule of INT8_SHARE_FLOOR.
+EXPORT_SHARE_FLOOR = {"maf-yolo-s": 0.087, "maf-yolo-m": 0.082, "yolov6n-office": 0.077,
+                      "yolov6m-office": 0.106, "yolov6l-office": 0.304}
+# The sites whose kernel times the phase reads: the office graphs' new
+# dense class (3x3 stride 1: RepVGG deploy convs, Head_Effide's cls and reg
+# convs) and S's and M's depthwise sites.
+EXPORT_TIMED = {"maf-yolo-s": "dw", "maf-yolo-m": "dw", "yolov6n-office": "3x3s1",
+                "yolov6m-office": "3x3s1", "yolov6l-office": "3x3s1"}
+
+
+def export_quant_phase(dev, card, folded_n):
+    """Phase 27: S, M and the office graphs N, M and L in real int8, N
+    exported with torch.export, and the FLOPs line.
+
+    Per graph of EXPORT_GRAPHS, on random_deploy weights:
+    export_quant_calib: PTQ max calibration on the card over
+    EXPORT_CALIB_BATCHES bs32@640 batches (every amax > 0); 2 images
+    calibrated on the card and on the CPU (plain versions) agree at rtol
+    1e-5, as N's. export_quant_sites: the int8 kernels against their plain
+    versions (then torch's activation) on the real bf16 input of every
+    distinct int8 conv site at bs2@640, with the activation its launch fuses
+    and without it, bit for bit, a second launch bit-identical; each dense
+    site's tile (ops/quant_conv.py:conv_tile) is reported. export_quant_int8:
+    int8_predict_fn (bf16) over EXPORT_BATCHES bs32@640 batches with the
+    launch counts read around that run: one int8_conv launch a dense site
+    and one int8_dw launch a depthwise site a predict, 1 NMS launch a batch
+    (8 on overflow), no front-end launch; the int8 predict against the
+    int8-sim one (quantized_predict_fn, f32) on a batch: the share of the
+    int8-sim detections (score > 0.1) matched, at least
+    EXPORT_SHARE_FLOOR; img/s of the int8 predict
+    beside the same graph's bf16 Evaler.predict on the same batches; the
+    kernel's ms per site of the class EXPORT_TIMED names, summed by class
+    (tools/tune_kernels.py:time_int8_site: warm and cold, plain, bound,
+    _int_mm, cuDNN bf16).
+
+    export: N (the slice's weights, calibrated here over
+    EXPORT_CALIB_BATCHES batches) exported by tools/export.py at bs32@640 on
+    the card with --end2end, for --quant none and int8: saved, loaded, run
+    on a batch; the program's outputs equal the eager function's bit for
+    bit; its graph holds mafyolo::greedy_nms (and mafyolo::int8_conv and
+    int8_dw for int8), and the launches counted around the loaded program's
+    run are 8 NMS (8 blocks of 256 of the 2000 candidates) and, for int8, 66
+    int8_conv and 16 int8_dw.
+
+    flops: tools/flops.py's line for N, S and M at 640 on the card, deploy
+    form; N's params 3.76M.
+
+    -> {"launches": the phase's launches by kernel, "records": by graph}."""
+    import pickle
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mafyolo_tpu_torch.core import quant as Q
+    from mafyolo_tpu_torch.models.office import office_config_graph
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.ops import quant_conv as QC
+    from mafyolo_tpu_torch.tools import export as EX
+    from mafyolo_tpu_torch.tools import flops as FL
+    from mafyolo_tpu_torch.tools.tune_kernels import (int8_inputs, int8_site_class,
+                                                      sum_int8_sites, time_int8_site)
+    from mafyolo_tpu_torch.utils.sample import evaler, images, random_deploy
+    from mafyolo_tpu_torch.utils.timing import cuda_ms
+    bf16 = torch.bfloat16
+
+    def counts():
+        return {"int8_conv": QC.int8_conv.launches, "int8_dw": QC.int8_dw.launches,
+                "greedy_nms": G.greedy_nms.launches, "frontend": FE.frontend_forward.launches}
+
+    def zero():
+        QC.int8_conv.launches = QC.int8_dw.launches = 0
+        G.greedy_nms.launches = FE.frontend_forward.launches = 0
+
+    total = {"int8_conv": 0, "int8_dw": 0, "greedy_nms": 0}
+    records, shares = {}, {}
+    for name in EXPORT_GRAPHS:
+        office = name.endswith("office")
+        graph = office_config_graph(name) if office else name
+        folded, _ = random_deploy(graph, dev, OFFICE_GAIN[name] if office else 1.5)
+
+        # ---- export_quant_calib
+        calib = [images(900 + i, BATCH).to(dev) for i in range(EXPORT_CALIB_BATCHES)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quant = Q.ptq_calibrate(graph, NC, folded, calib, max_batches=EXPORT_CALIB_BATCHES,
+                                device=dev)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        amax = [float(v) for _, v in _tree_items(quant)]
+        two = images(7, 2)
+        rel = _tree_max_rel(
+            Q.ptq_calibrate(graph, NC, folded, [two.to(dev)], max_batches=1, device=dev),
+            Q.ptq_calibrate(graph, NC, folded, [two], max_batches=1, device="cpu"))
+        emit(phase="export_quant_calib", model=name, batches=EXPORT_CALIB_BATCHES, batch=BATCH,
+             img=IMG, leaves=len(amax), seconds=calib_s, amax_min=min(amax),
+             amax_max=max(amax), card_vs_cpu_max_rel=rel)
+        check(min(amax) > 0, f"{name} calibration: an amax of 0")
+        check(rel <= 1e-5, f"{name} calibration card vs CPU: max rel {rel}")
+
+        # ---- export_quant_sites: every distinct site at bs2@640
+        p8 = Q.int8_predict_fn(graph, NC, folded, quant, device=dev)
+        seen = int8_inputs(p8.model, Q.normalize(images(9, 2), bf16, dev))
+        kinds = [p.kind for p, _, _ in seen.values()]
+        n_dense, n_dw = kinds.count("dense"), kinds.count("dw")
+        n_distinct, cases = distinct_int8_cases(seen)
+        err, _ = check_int8_cases(cases, f"{name}: ")
+        tiles, by_class = {}, {}
+        for p, x in {tag: (p, x) for tag, p, x, _ in cases}.values():
+            cls = int8_site_class(p)
+            by_class[cls] = by_class.get(cls, 0) + 1
+            if p.kind == "dense":
+                ho, wo = QC._out_hw(x.shape[2], x.shape[3], p.k, p.stride, p.pad)
+                tiles[f"{cls} {p.cin}->{p.cout} {ho}x{wo}"] = list(QC.conv_tile(
+                    p.k, p.stride, p.pad, ho, wo, QC.pad16(p.cin), x.element_size()))
+        emit(phase="export_quant_sites", model=name, sites=len(seen), dense=n_dense, dw=n_dw,
+             distinct=n_distinct, distinct_by_class=by_class, max_abs_err=err, tiles=tiles)
+
+        # ---- export_quant_int8: the int8 predict, launch counts read around it
+        batches = [images(910 + i, BATCH).to(dev) for i in range(EXPORT_BATCHES)]
+        torch.cuda.synchronize()
+        zero()
+        outs, nms_per = [], []
+        for bt in batches:
+            before = G.greedy_nms.launches
+            outs.append(p8(bt))
+            nms_per.append(G.greedy_nms.launches - before)
+        torch.cuda.synchronize()
+        n = counts()
+        for k in total:
+            total[k] += n[k]
+        check(n["int8_conv"] == n_dense * len(batches) and n["int8_dw"] == n_dw * len(batches),
+              f"{name}: int8 launches {n} over {len(batches)} predicts ({n_dense} dense, "
+              f"{n_dw} dw sites)")
+        check(n["frontend"] == 0, f"{name}: the int8 predict launched the front-end kernel")
+        check(all(k in (1, 8) for k in nms_per), f"{name}: NMS launches a batch {nms_per}")
+        check_dets(outs, BATCH, f"{name} int8 predict")
+        psim = Q.quantized_predict_fn(graph, NC, folded, quant, device=dev)
+        n_sim, m_sim = match(on_cpu(psim(batches[0])), on_cpu(outs[0]), 0.1)
+        shares[name] = m_sim / max(n_sim, 1)
+        del psim
+        ev = evaler(graph, folded, True, dev)
+        rate = {}
+        for tag, fn in (("int8_real", p8), ("bf16", ev.predict)):
+            img_s, mean_ms, p50, p90 = route_timing(fn, batches)
+            rate[tag] = {"img_per_s": img_s, "batch_ms_mean": mean_ms, "p50_batch_ms": p50,
+                         "p90_batch_ms": p90}
+        del ev
+        x8 = Q.normalize(batches[0], bf16, dev)
+        recs = [{"site": mname, "kind": p.kind, "class": int8_site_class(p),
+                 **time_int8_site(p, xi, act)}
+                for mname, (p, xi, act) in int8_inputs(p8.model, x8).items()
+                if EXPORT_TIMED[name] in (p.kind, int8_site_class(p))]
+        classes, _ = sum_int8_sites(recs)
+        records[name] = {"sites": len(seen), "dense": n_dense, "dw": n_dw, "rate": rate,
+                         "classes": classes, "share": shares[name]}
+        emit(phase="export_quant_int8", model=name, card=card, batches=len(batches),
+             launches=n, nms_launches_per_batch=nms_per, int8_conv_per_predict=n_dense,
+             int8_dw_per_predict=n_dw, sim_dets_above_0p1=n_sim, int8_matched=m_sim,
+             int8_share=shares[name], share_floor=EXPORT_SHARE_FLOOR[name], predict=rate,
+             timed_class=EXPORT_TIMED[name], classes=classes,
+             equal_to_plain=all(r["equal_to_plain"] for r in recs))
+        check(all(r["equal_to_plain"] for r in recs), f"{name}: a timed site differs from plain")
+        check(n_sim > 0 and shares[name] >= EXPORT_SHARE_FLOOR[name],
+              f"{name} int8 vs int8-sim: {m_sim}/{n_sim} < {EXPORT_SHARE_FLOOR[name]}")
+        del p8, seen, cases, outs, batches, calib, x8, recs
+        torch.cuda.empty_cache()
+
+    # ---- export: N at bs32@640 on the card, --end2end, none and int8
+    calib = [images(900 + i, BATCH).to(dev) for i in range(EXPORT_CALIB_BATCHES)]
+    quant_n = Q.ptq_calibrate("maf-yolo-n", NC, folded_n, calib,
+                              max_batches=EXPORT_CALIB_BATCHES, device=dev)
+    bt = images(920, BATCH).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "n_calib.npck")
+        with open(weights, "wb") as f:
+            pickle.dump({"model": folded_n, "quant": quant_n, "folded": True, "ema": None,
+                         "meta": {"graph": "maf-yolo-n", "nc": NC}}, f, protocol=4)
+        for quant in ("none", "int8"):
+            argv = ["--weights", weights, "--img-size", str(IMG), "--batch-size", str(BATCH),
+                    "--end2end", "--conf-thres", "0.03", "--iou-thres", "0.65",
+                    "--quant", quant, "--out", os.path.join(tmp, quant), "--device", str(dev)]
+            t0 = time.perf_counter()
+            path = EX.run(EX.get_args_parser().parse_args(argv))
+            export_s = time.perf_counter() - t0
+            program = torch.export.load(path)
+            targets = [str(nd.target) for nd in program.graph.nodes if nd.op == "call_function"]
+            ops = {op: targets.count(f"mafyolo.{op}.default")
+                   for op in ("greedy_nms", "int8_conv", "int8_dw")}
+            run = program.module()
+            eager = EX.deploy_function("maf-yolo-n", NC, folded_n, quant_n, quant, True, 0.03,
+                                       0.65, 300, dev)
+            want = eager(bt)
+            run(bt)                                  # warm up
+            torch.cuda.synchronize()
+            zero()
+            got = run(bt)
+            torch.cuda.synchronize()
+            n = counts()
+            for k in total:
+                total[k] += n[k]
+            same = {k: bool(torch.equal(got[k], want[k])) for k in want}
+            mean_ms = {"program": cuda_ms(lambda: run(bt), 3),
+                       "eager": cuda_ms(lambda: eager(bt), 3)}
+            # the device's work a batch, program against eager: busy ms,
+            # device ops and the five largest by summed ms
+            prof_rec = {}
+            for tag, fn in (("program", run), ("eager", eager)):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn(bt)
+                    torch.cuda.synchronize()
+                busy_us, spans, by_name = device_busy(prof)
+                prof_rec[tag] = {"busy_ms": busy_us / 1e3, "device_ops": len(spans),
+                                 "top": sorted(((v / 1e3, k[:60]) for k, v in by_name.items()),
+                                               reverse=True)[:5]}
+            emit(phase="export", model="maf-yolo-n", quant=quant, card=card, batch=BATCH,
+                 img=IMG, export_seconds=export_s, pt2_bytes=os.path.getsize(path),
+                 graph_ops=ops, launches=n, equal_to_eager=same,
+                 dets_per_image_mean=float(got["valid"].sum(1).float().mean().item()),
+                 batch_ms=mean_ms, device=prof_rec)
+            want_ops = {"greedy_nms": 8, "int8_conv": 66 if quant == "int8" else 0,
+                        "int8_dw": 16 if quant == "int8" else 0}
+            check(ops == want_ops, f"export {quant}: graph ops {ops}")
+            check({k: n[k] for k in want_ops} == want_ops and n["frontend"] == 0,
+                  f"export {quant}: launches of the loaded program's run {n}")
+            check(all(same.values()), f"export {quant}: the program differs from eager {same}")
+            del program, run, eager, got, want
+
+    # ---- flops: the CLI's line for N, S and M at IMG, deploy form
+    lines = [FL.main(["--graph", g, "--img-size", str(IMG), "--device", str(dev)])
+             for g in ("maf-yolo-n", "maf-yolo-s", "maf-yolo-m")]
+    emit(phase="flops", lines=lines)
+    check(lines[0].startswith(f"maf-yolo-n @{IMG}: params 3.76M"), f"flops: {lines[0]}")
+    emit(phase="export_quant_shares", shares=shares, floors=EXPORT_SHARE_FLOOR, launches=total)
+    return {"launches": total, "records": records}
 
 
 if __name__ == "__main__":

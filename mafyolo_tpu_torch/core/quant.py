@@ -268,16 +268,20 @@ def qat_finetune(graph, nc: int, folded_params: Dict, quant_tree: Dict,
 
 
 def quantized_predict_fn(graph, nc: int, folded_params: Dict, quant_tree: Dict,
-                         strides=(8, 16, 32), reg_max: int = 16,
+                         strides=None, reg_max: Optional[int] = None,
                          conf_thres: float = 0.03, iou_thres: float = 0.65,
                          max_det: int = 300, dtype=torch.float32, device="cuda"):
     """int8-simulated (fake-quant) forward + decode + batched NMS: a
-    function of uint8 BGR NHWC images -> the detections dict."""
+    function of uint8 BGR NHWC images -> the detections dict. strides and
+    reg_max default to the graph's own (the model's)."""
     from mafyolo_tpu_torch.models.detect import decode_eval
     from mafyolo_tpu_torch.ops.nms import batched_nms
 
     model = quant_model(graph, nc, folded_params, quant_tree, mode="fake", device=device,
                         dtype=dtype)
+
+    strides = model.strides if strides is None else strides
+    reg_max = model.reg_max if reg_max is None else reg_max
 
     @torch.no_grad()
     def predict(imgs_u8):
@@ -290,13 +294,14 @@ def quantized_predict_fn(graph, nc: int, folded_params: Dict, quant_tree: Dict,
 
 
 def int8_predict_fn(graph, nc: int, folded_params: Dict, quant_tree: Dict,
-                    strides=(8, 16, 32), reg_max: int = 16,
+                    strides=None, reg_max: Optional[int] = None,
                     conf_thres: float = 0.03, iou_thres: float = 0.65,
                     max_det: int = 300, dtype=torch.bfloat16, device="cuda"):
     """REAL-int8 forward (the int8 conv kernels, int32 accumulation) + fused
     decode + greedy NMS: a function of uint8 BGR NHWC images -> the
     detections dict. Needs a fully calibrated tree (every act_amax > 0):
-    sensitive-layer skipping is a fake-quant concept."""
+    sensitive-layer skipping is a fake-quant concept. strides and reg_max
+    default to the graph's own (the model's)."""
     for _, leaf in _paths(quant_tree):
         if float(np.asarray(leaf).min()) <= 0:
             raise ValueError("int8 deploy needs every act_amax > 0 "
@@ -305,6 +310,8 @@ def int8_predict_fn(graph, nc: int, folded_params: Dict, quant_tree: Dict,
 
     model = quant_model(graph, nc, folded_params, quant_tree, mode="int8", device=device,
                         dtype=dtype)
+    strides = model.strides if strides is None else strides
+    reg_max = model.reg_max if reg_max is None else reg_max
 
     @torch.no_grad()
     def predict(imgs_u8):

@@ -26,6 +26,7 @@ convs through ops/quant_conv.py on weights packed by pack_int8).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -241,16 +242,38 @@ class QuantConv2d(_Quantizer, nn.Conv2d):
     ops/quant_conv.py (clip [-127, 127]) on the pack that pack_int8 made.
     `act` is the activation that follows the conv: the int8 kernel applies
     it in its epilogue (ops/quant_conv.py:FUSED_ACTS), the other modes after
-    the conv."""
+    the conv. The pack's tensors are non-persistent buffers `int8_<field>`
+    (they move with the module, an exported program holds them as
+    constants, and state_dict does not change); `int8` reads the pack."""
 
     def __init__(self, *args, calibrate: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
         self._init_quant(calibrate)
-        self.int8 = None
+        self._int8_fields = None
+
+    def set_int8(self, p: QC.Int8Pack):
+        """Hold pack p: its tensors as buffers, its other fields as they are."""
+        fields = {}
+        for f in dataclasses.fields(p):
+            value = getattr(p, f.name)
+            if isinstance(value, torch.Tensor):
+                self.register_buffer(f"int8_{f.name}", value, persistent=False)
+            else:
+                fields[f.name] = value
+        self._int8_fields = fields
+
+    @property
+    def int8(self) -> Optional[QC.Int8Pack]:
+        """The packed weights (None before pack_int8)."""
+        if self._int8_fields is None:
+            return None
+        return QC.Int8Pack(**self._int8_fields, **{
+            f.name: getattr(self, f"int8_{f.name}") for f in dataclasses.fields(QC.Int8Pack)
+            if f.name not in self._int8_fields})
 
     def forward(self, x, act: Optional[str] = None):
         if self.mode == "int8":
-            if self.int8 is None:
+            if self._int8_fields is None:
                 raise RuntimeError("int8 mode without packed weights: call pack_int8")
             return QC.int8_conv(x, self.int8, act)
         w = self.weight
@@ -280,8 +303,8 @@ def pack_int8(model: nn.Module, device):
     f32 weight, bias and act_amax, onto `device`."""
     for m in model.modules():
         if isinstance(m, QuantConv2d):
-            m.int8 = QC.pack(m.weight, m.bias, m.act_amax, m.stride[0], m.padding[0],
-                             m.groups).to(device)
+            m.set_int8(QC.pack(m.weight, m.bias, m.act_amax, m.stride[0], m.padding[0],
+                               m.groups).to(device))
 
 
 class ConvAct(nn.Module):
@@ -603,15 +626,8 @@ class Upsample2x(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# The office graphs' blocks (EfficientRep / CSPBep, RepPAN, EffiDeHead):
-# blocks.py:872-1071 of the JAX package. Their INT8 modes are not ported.
-
-
-def _no_quant(quant: bool, kind: str):
-    if quant:
-        raise NotImplementedError(
-            f"the INT8 modes of the office graphs' blocks ({kind}) are not ported yet "
-            f"(ROADMAP Queue 1, export and FLOPs, and S and the office graphs in int8)")
+# The office graphs' blocks (EfficientRep / CSPBep, RepPAN, EffiDeHead) and
+# their INT8 modes: blocks.py:872-1071 of the JAX package.
 
 
 class RepBlock(nn.Module):
@@ -622,11 +638,11 @@ class RepBlock(nn.Module):
     def __init__(self, cin: int, cout: int, n: int = 1, deploy: bool = False,
                  quant: bool = False, calibrate: bool = False):
         super().__init__()
-        _no_quant(quant, "RepBlock")
         self.n = n
-        self.conv1 = RepVGGBlock(cin, cout, deploy=deploy)
+        q = dict(deploy=deploy, quant=quant, calibrate=calibrate)
+        self.conv1 = RepVGGBlock(cin, cout, **q)
         for i in range(n - 1):
-            self.add_module(f"block{i}", RepVGGBlock(cout, cout, deploy=deploy))
+            self.add_module(f"block{i}", RepVGGBlock(cout, cout, **q))
 
     def forward(self, x):
         x = self.conv1(x)
@@ -639,18 +655,16 @@ class BottleRep(nn.Module):
     """Two basic blocks and, where cin == cout, the identity weighted by a
     learnable `alpha` of shape (1,) (the reference's weight=True, which every
     BottleRep of a BepC3 takes). basic 'repvgg' takes RepVGG blocks
-    (yolov6-m), 'conv' the 3x3 conv-BN-SiLU ConvWrapper (yolov6-l)."""
+    (yolov6-m), 'conv' the 3x3 conv-BN-SiLU ConvWrapper (yolov6-l). Under
+    quant the two blocks quantize; the alpha-weighted sum stays float."""
 
     def __init__(self, cin: int, cout: int, basic: str = "repvgg", deploy: bool = False,
                  quant: bool = False, calibrate: bool = False):
         super().__init__()
-        _no_quant(quant, "BottleRep")
-        if basic == "repvgg":
-            self.conv1 = RepVGGBlock(cin, cout, deploy=deploy)
-            self.conv2 = RepVGGBlock(cout, cout, deploy=deploy)
-        else:
-            self.conv1 = ConvWrapper(cin, cout, deploy=deploy)
-            self.conv2 = ConvWrapper(cout, cout, deploy=deploy)
+        q = dict(deploy=deploy, quant=quant, calibrate=calibrate)
+        block = RepVGGBlock if basic == "repvgg" else ConvWrapper
+        self.conv1 = block(cin, cout, **q)
+        self.conv2 = block(cout, cout, **q)
         if cin == cout:
             self.alpha = nn.Parameter(torch.ones(1))
 
@@ -675,15 +689,15 @@ class BepC3(nn.Module):
                  basic: str = "repvgg", deploy: bool = False, quant: bool = False,
                  calibrate: bool = False):
         super().__init__()
-        _no_quant(quant, "BepC3")
         c_ = int(cout * e)
-        cv = _convish(deploy)
+        cv = _convish(deploy, quant, calibrate)
         self.cv1 = cv(cin, c_, 1, act="silu")
         self.cv2 = cv(cin, c_, 1, act="silu")
         self.chain = bepc3_chain_len(n)
-        self.m_conv1 = BottleRep(c_, c_, basic, deploy=deploy)
+        q = dict(deploy=deploy, quant=quant, calibrate=calibrate)
+        self.m_conv1 = BottleRep(c_, c_, basic, **q)
         for i in range(self.chain - 1):
-            self.add_module(f"m_block{i}", BottleRep(c_, c_, basic, deploy=deploy))
+            self.add_module(f"m_block{i}", BottleRep(c_, c_, basic, **q))
         self.cv3 = cv(2 * c_, cout, 1, act="silu")
 
     def forward(self, x):
@@ -694,23 +708,25 @@ class BepC3(nn.Module):
 
 
 class SimSPPF(nn.Module):
-    """SPPF with ReLU cells (conv-BN-ReLU 1x1 in and out)."""
+    """SPPF with ReLU cells (conv-BN-ReLU 1x1 in and out). With quant, one
+    input quantizer `pool_q` is shared by the three pools (blocks.py:
+    989-993), so calibration records the max over the three inputs."""
 
     def __init__(self, cin: int, cout: int, k: int = 5, deploy: bool = False,
                  quant: bool = False, calibrate: bool = False):
         super().__init__()
-        _no_quant(quant, "SimSPPF")
         c_ = cin // 2
         self.k = k
-        cv = _convish(deploy)
+        cv = _convish(deploy, quant, calibrate)
         self.cv1 = cv(cin, c_, 1, act="relu")
         self.cv2 = cv(4 * c_, cout, 1, act="relu")
+        self.pool_q = QuantAct(calibrate) if quant and deploy else nn.Identity()
 
     def forward(self, x):
         x = self.cv1(x)
-        y1 = max_pool_same(x, self.k)
-        y2 = max_pool_same(y1, self.k)
-        y3 = max_pool_same(y2, self.k)
+        y1 = max_pool_same(self.pool_q(x), self.k)
+        y2 = max_pool_same(self.pool_q(y1), self.k)
+        y3 = max_pool_same(self.pool_q(y2), self.k)
         return self.cv2(torch.cat([x, y1, y2, y3], 1))
 
 
@@ -719,20 +735,33 @@ class TransposeUp(nn.Module):
     two output blocks overlap, so out[2y+u, 2x+v] = W[u, v]^T x[y, x] + b.
     `weight` is held [cout, cin, 2, 2], the OIHW order of the bridge's other
     kernels (the JAX kernel is [2, 2, cin, cout]); it is the same in train
-    and deploy form."""
+    and deploy form.
+
+    With quant (blocks.py:1019-1026): the input quantizer `in_q`, and outside
+    calib mode the kernel fake-quantized per output channel (the amax over
+    dims 1-3 here, JAX's HWIO 0-2), in f32; in calib mode the kernel stays
+    as it is. In int8 mode the op stays this fake-quant float op, as JAX's
+    INT8_INFER reaches its _RawConv alone."""
 
     def __init__(self, cin: int, cout: int, deploy: bool = False, quant: bool = False,
                  calibrate: bool = False):
         super().__init__()
-        _no_quant(quant, "Transpose")
         self.weight = nn.Parameter(torch.empty(cout, cin, 2, 2))
         bound = 1.0 / math.sqrt(4 * cin)
         nn.init.uniform_(self.weight, -bound, bound)
         self.bias = nn.Parameter(torch.zeros(cout))
+        if quant and deploy:
+            self.in_q = QuantAct(calibrate)
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight.transpose(0, 1).to(x.dtype),
-                                  self.bias.to(x.dtype), stride=2)
+        w = self.weight
+        if hasattr(self, "in_q"):
+            x = self.in_q(x)
+            if self.in_q.mode != "calib":
+                w = w.float()
+                w = fake_quant_sym(w, w.detach().abs().amax((1, 2, 3), keepdim=True))
+        return F.conv_transpose2d(x, w.transpose(0, 1).to(x.dtype), self.bias.to(x.dtype),
+                                  stride=2)
 
 
 class Head_Effide(nn.Module):
@@ -740,14 +769,15 @@ class Head_Effide(nn.Module):
     raw DFL reg): 1x1 stem, then 3x3 cls_conv -> 1x1 cls_pred and 3x3
     reg_conv -> 1x1 reg_pred, every conv cin wide. Train form: zero pred
     kernels, cls bias at the 1e-2 prior, reg bias 1.0, outputs in f32;
-    deploy form: outputs in the model dtype (as Head_DepthUni)."""
+    deploy form: outputs in the model dtype (as Head_DepthUni). Under quant
+    stem, cls_conv and reg_conv quantize; the preds stay plain convs, as
+    JAX's nn.Conv are."""
 
     def __init__(self, cin: int, reg_max: int = 16, nc: int = 80, deploy: bool = False,
                  quant: bool = False, calibrate: bool = False):
         super().__init__()
-        _no_quant(quant, "Head_Effide")
         self.deploy = deploy
-        cv = _convish(deploy)
+        cv = _convish(deploy, quant, calibrate)
         self.stem = cv(cin, cin, 1, act="silu")
         self.cls_conv = cv(cin, cin, 3, act="silu")
         self.cls_pred = nn.Conv2d(cin, nc, 1)

@@ -2,9 +2,11 @@
 PyTorch version.
 
 Counterpart of mafyolo_tpu/ops/pallas_nms.py:pallas_greedy_nms and of the
-XLA fixpoint mafyolo_tpu/ops/nms.py:_greedy_nms_mask. `greedy_nms` runs the
-plain version on a CPU tensor and the kernel on a CUDA tensor; there is no
-fallback from one to the other.
+XLA fixpoint mafyolo_tpu/ops/nms.py:_greedy_nms_mask. `greedy_nms` calls
+the custom op `mafyolo::greedy_nms` (registered when this module is
+imported), which runs the plain version on a CPU tensor and the kernel on a
+CUDA tensor; there is no fallback from one to the other. The op's fake
+version gives the keep mask's shape, so torch.export traces through it.
 """
 from __future__ import annotations
 
@@ -71,8 +73,10 @@ def matrix_words(m: int) -> int:
     return nw * nw * TILE
 
 
-def greedy_nms(boxes, valid, iou_thres: float):
-    """Greedy NMS keep mask; see greedy_nms_plain for the contract."""
+@torch.library.custom_op("mafyolo::greedy_nms", mutates_args=())
+def _greedy_nms_op(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """The op `mafyolo::greedy_nms`: the plain version on a CPU tensor, the
+    kernel on a CUDA tensor, a raise on any other device."""
     if boxes.device.type == "cpu":
         return greedy_nms_plain(boxes, valid, iou_thres)
     if boxes.device.type != "cuda":
@@ -99,6 +103,18 @@ def greedy_nms(boxes, valid, iou_thres: float):
     _build.check(lib, err, "greedy_nms kernel")
     greedy_nms.launches += 1
     return keep
+
+
+@_greedy_nms_op.register_fake
+def _(boxes, valid, iou_thres):
+    return torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
+
+
+def greedy_nms(boxes, valid, iou_thres: float):
+    """Greedy NMS keep mask; see greedy_nms_plain for the contract. Calls
+    the op `mafyolo::greedy_nms`, so that torch.export records the op (and
+    not its plain version) in an exported program."""
+    return torch.ops.mafyolo.greedy_nms(boxes, valid, float(iou_thres))
 
 
 greedy_nms.launches = 0

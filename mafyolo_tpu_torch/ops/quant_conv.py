@@ -17,9 +17,13 @@ deploy graph with calibrated activation amax `a` and f32 weights w [O,I,k,k]:
     out = y cast to the activation dtype (bf16 on the card)
 
 `pack` quantizes the weights once on the host (f32, CPU) into an Int8Pack;
-the activations are quantized where they are loaded. `int8_conv` runs the
-plain version on a CPU tensor and the kernel on a CUDA tensor; there is no
-fallback from one to the other. `act` is the activation that follows the
+the activations are quantized where they are loaded. `int8_conv` and
+`int8_dw` call the custom ops `mafyolo::int8_conv` and `mafyolo::int8_dw`
+(registered when this module is imported; they take the pack's tensors and
+scalars, and their fake versions give the output's shape, so torch.export
+records them in a program), which run the plain version on a CPU tensor
+and the kernel on a CUDA tensor; there is no fallback from one to the
+other. `act` is the activation that follows the
 conv in the graph: the dense kernel applies ReLU and SiLU in its epilogue
 (FUSED_ACTS), on the CPU torch applies it after the plain version, with the
 same bits (chip_smoke.py checks every site and every finite bf16 value for
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -359,11 +364,31 @@ ACTS = {None: lambda y: y, "relu": F.relu, "silu": F.silu}
 def int8_conv(x: torch.Tensor, p: Int8Pack, act=None) -> torch.Tensor:
     """Real-int8 conv of one deploy-graph conv, then the activation `act`
     (None, "relu" or "silu"); routes a "dw" pack to int8_dw. See the module
-    docstring for the contract."""
+    docstring for the contract. Calls the op `mafyolo::int8_conv` on the
+    pack's tensors, so that torch.export records the op in a program."""
     if act not in ACTS:
         raise ValueError(f"int8_conv: unknown activation {act!r}")
     if p.kind == "dw":
         return ACTS[act](int8_dw(x, p))
+    return torch.ops.mafyolo.int8_conv(x, p.w_q, p.w_kernel, p.scale, p.bias, p.x_scale_t,
+                                       p.x_scale, p.stride, p.pad, act)
+
+
+def _out_hw(h: int, w: int, k: int, stride: int, pad: int):
+    return (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+
+
+def _int8_conv_impl(x: torch.Tensor, w_q: torch.Tensor, w_kernel: torch.Tensor,
+                  scale: torch.Tensor, bias: torch.Tensor, x_scale_t: torch.Tensor,
+                  x_scale: float, stride: int, pad: int, act: Optional[str]) -> torch.Tensor:
+    """The op `mafyolo::int8_conv`: a dense (groups 1) pack's tensors (w_q
+    the OIHW int8 weight of the plain version, w_kernel the kernel's
+    fragment pack, scale, bias, x_scale_t) and its scalars. The plain
+    version (then torch's activation) on a CPU tensor, the kernel with the
+    activation in its epilogue on a CUDA tensor, a raise on any other device."""
+    o, i, k, _ = w_q.shape
+    p = Int8Pack("dense", i, o, k, stride, pad, 1, x_scale, x_scale_t, w_q, w_kernel, scale,
+                 bias)
     if x.device.type == "cpu":
         return ACTS[act](int8_conv_plain(x, p))
     _launch_checks(x, p, "int8_conv")
@@ -373,6 +398,16 @@ def int8_conv(x: torch.Tensor, p: Int8Pack, act=None) -> torch.Tensor:
     return out if fuse else ACTS[act](out)
 
 
+_int8_conv_op = torch.library.custom_op("mafyolo::int8_conv", _int8_conv_impl, mutates_args=())
+
+
+@_int8_conv_op.register_fake
+def _(x, w_q, w_kernel, scale, bias, x_scale_t, x_scale, stride, pad, act):
+    ho, wo = _out_hw(x.shape[2], x.shape[3], w_q.shape[2], stride, pad)
+    return torch.empty((x.shape[0], w_q.shape[0], ho, wo), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
 def conv_launch(x, p: Int8Pack, act=None, tile=None, prof=None):
     """One launch of the dense kernel on a checked CUDA input, the activation
     `act` (None or one of FUSED_ACTS) in its epilogue; tile overrides
@@ -380,7 +415,7 @@ def conv_launch(x, p: Int8Pack, act=None, tile=None, prof=None):
     by phase. Counts no launch."""
     x, ld = _as_nhwc(x)
     b, c, h, w = x.shape
-    ho, wo = (h + 2 * p.pad - p.k) // p.stride + 1, (w + 2 * p.pad - p.k) // p.stride + 1
+    ho, wo = _out_hw(h, w, p.k, p.stride, p.pad)
     out = torch.empty((b, p.cout, ho, wo), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
@@ -401,15 +436,37 @@ def conv_launch(x, p: Int8Pack, act=None, tile=None, prof=None):
 
 
 def int8_dw(x: torch.Tensor, p: Int8Pack) -> torch.Tensor:
-    """Real-int8 depthwise conv (stride 1, k in DW_KERNELS, 'same' pad)."""
+    """Real-int8 depthwise conv (stride 1, k in DW_KERNELS, 'same' pad)
+    through the op `mafyolo::int8_dw`."""
     if p.kind != "dw":
         raise ValueError("int8_dw: want a depthwise pack")
+    return torch.ops.mafyolo.int8_dw(x, p.w_q, p.w_kernel, p.scale, p.bias, p.x_scale_t,
+                                     p.x_scale)
+
+
+def _int8_dw_impl(x: torch.Tensor, w_q: torch.Tensor, w_kernel: torch.Tensor,
+                scale: torch.Tensor, bias: torch.Tensor, x_scale_t: torch.Tensor,
+                x_scale: float) -> torch.Tensor:
+    """The op `mafyolo::int8_dw`: a depthwise pack's tensors (w_q [C,1,k,k]
+    int8, w_kernel the kernel's words) and x_scale. The plain version on a
+    CPU tensor, the kernel on a CUDA tensor, a raise on any other device."""
+    c, _, k, _ = w_q.shape
+    p = Int8Pack("dw", c, c, k, 1, k // 2, c, x_scale, x_scale_t, w_q, w_kernel, scale, bias)
     if x.device.type == "cpu":
         return int8_conv_plain(x, p)
     _launch_checks(x, p, "int8_dw")
     out = dw_launch(x, p)
     int8_dw.launches += 1
     return out
+
+
+_int8_dw_op = torch.library.custom_op("mafyolo::int8_dw", _int8_dw_impl, mutates_args=())
+
+
+@_int8_dw_op.register_fake
+def _(x, w_q, w_kernel, scale, bias, x_scale_t, x_scale):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
 
 
 def dw_launch(x, p: Int8Pack, tile=None, prof=None):

@@ -466,7 +466,10 @@ def _int8_pack(cin, cout, k, stride, groups, seed, device):
     ((2, 24, 41, 39), 48, 3, 2),       # 48-byte pixels, 3 x 19 tiles
     ((2, 72, 20, 20), 24, 1, 1),       # C 72: 80-byte taps
     ((2, 192, 40, 40), 96, 3, 2),      # 20 x 3 tiles over a 20 px output
-    ((2, 128, 80, 80), 128, 3, 2)])    # 8 x 8 tiles
+    ((2, 128, 80, 80), 128, 3, 2),     # 8 x 8 tiles
+    ((2, 64, 40, 40), 64, 3, 1),       # 3x3 stride 1: the office graphs' RepVGG convs
+    ((2, 32, 41, 39), 48, 3, 1),       # 3x3 stride 1 at odd H and W
+    ((2, 1024, 20, 20), 1024, 3, 1)])  # office L's P5: 1040-byte slots, a tall thin tile
 def test_int8_conv_kernel_matches_plain(cuda_device, dtype, shape, cout, k, stride):
     """Bit-equal to the plain version (exact f64 integer conv, the same
     quantization and epilogue), and a second launch bit-identical."""
@@ -671,3 +674,40 @@ def test_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
         for k, w in want.items():
             assert np.array_equal(got[k], other[k]), k
             np.testing.assert_allclose(got[k], w, rtol=rtol, atol=atol, err_msg=k)
+
+
+def test_export_int8_program_on_the_card(cuda_device, tmp_path):
+    """tools/export.py --quant int8 --end2end of N (bs2@128, nc 7) on the
+    card: the loaded program launches 66 int8_conv, 16 int8_dw and 8 NMS
+    kernels a run (2000 candidates, 8 blocks of 256) and equals the eager
+    function bit for bit."""
+    import pickle
+
+    from mafyolo_tpu_torch.core import quant as Q
+    from mafyolo_tpu_torch.ops import quant_conv as QC
+    from mafyolo_tpu_torch.tools import export as E
+    folded = random_folded("maf-yolo-n", 7, seed=3)
+    imgs = torch.from_numpy(u8_images(2, (2, 128, 128, 3))).to(cuda_device)
+    with torch.no_grad():
+        quant = Q.ptq_calibrate("maf-yolo-n", 7, folded, [imgs], max_batches=1,
+                                device=cuda_device)
+    weights = str(tmp_path / "n.npck")
+    with open(weights, "wb") as f:
+        pickle.dump({"model": folded, "quant": quant, "folded": True, "ema": None,
+                     "meta": {"graph": "maf-yolo-n", "nc": 7}}, f, protocol=4)
+    path = E.run(E.get_args_parser().parse_args(
+        ["--weights", weights, "--img-size", "128", "--batch-size", "2", "--end2end",
+         "--conf-thres", "0.03", "--quant", "int8", "--out", str(tmp_path / "x"),
+         "--device", str(cuda_device)]))
+    run = torch.export.load(path).module()
+    eager = E.deploy_function("maf-yolo-n", 7, folded, quant, "int8", True, 0.03, 0.45, 300,
+                              cuda_device)
+    with torch.no_grad():
+        want = eager(imgs)
+        before = (QC.int8_conv.launches, QC.int8_dw.launches, G.greedy_nms.launches)
+        got = run(imgs)
+        torch.cuda.synchronize()
+    after = (QC.int8_conv.launches, QC.int8_dw.launches, G.greedy_nms.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (66, 16, 8)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -212,10 +212,12 @@ def test_quantize_cli_defaults_to_the_card():
 
 @pytest.mark.parametrize("kind", ["dense", "dw"])
 def test_int8_wrappers_raise_without_their_library(kind, monkeypatch, tmp_path):
-    """Given a tensor off the CPU, an int8 conv wrapper builds and launches
-    its kernel or raises: with no nvcc to build it, it raises, and never
+    """Given a tensor off the CPU, an int8 conv op builds and launches its
+    kernel or raises: with no nvcc to build it, it raises, and never
     computes the plain version. (A meta tensor stands in for a CUDA one
-    here, the device checks waived; the card's tests launch the kernels.)"""
+    here, the device checks waived, handed to the op's implementation as
+    the dispatcher hands it a CUDA tensor: given to the op itself, a meta
+    tensor takes its fake version. The card's tests launch the kernels.)"""
     import torch
 
     from mafyolo_tpu_torch.ops import _build
@@ -236,5 +238,9 @@ def test_int8_wrappers_raise_without_their_library(kind, monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build.Path, "exists", lambda self: False)
     x = torch.empty((2, 8, 6, 6), device="meta")
+    args = (x, p.w_q, p.w_kernel, p.scale, p.bias, p.x_scale_t, p.x_scale)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        Q.int8_conv(x, p)
+        if kind == "dense":
+            Q._int8_conv_impl(*args, p.stride, p.pad, None)
+        else:
+            Q._int8_dw_impl(*args)

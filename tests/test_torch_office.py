@@ -170,12 +170,6 @@ def test_office_pt_reads_as_jax(name):
             np.testing.assert_array_equal(np.asarray(leaves[k], np.float32), v, err_msg=k)
 
 
-def test_office_quant_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError,
-                       match="S and the office graphs in int8"):
-        build_model(O.office_config_graph("yolov6n-office"), nc=NC, deploy=True, quant=True)
-
-
 def _office_n_with_detections():
     """Random folded office N weights, cls_pred biases shifted so that each
     128 px image has a few hundred (anchor, class) pairs above conf 0.03."""

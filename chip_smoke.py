@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero without a result line:
   2. build      nvcc-build the hand-written kernels from mafyolo_tpu_torch/csrc;
                 cuobjdump -sass of the front-end, neck and stem libraries must
                 hold tensor-core instructions (HMMA or HGMMA), the int8 conv
-                library IMMA ones;
+                library IMMA ones (mma.sync) and IGMMA ones (the 3x3
+                stride-1 kernel's warpgroup MMA);
   3. frontend   the fused front-end kernel against its plain version
                 (N bs4@640, S and M bs2@640, a 256x64 N batch, and 200x168
                 batches of N, S and M, whose H/4 = 50 and W/4 = 42 no tile
@@ -146,12 +147,15 @@ Phases, in order; any failure exits non-zero without a result line:
                 against CPU; an M step at bs8@640.
  27. export_quant  S, M and the office graphs N, M and L served in real
                 int8 at bs32@640 (export_quant_phase's docstring lists the
-                gates): calibrated on the card (f64 card against CPU),
-                every distinct int8 site bit-equal to its plain version,
-                int8_predict_fn with the int8 and NMS launches read around
-                it, the share of int8-sim detections matched, img/s beside
-                bf16, the office 3x3 stride-1 and S's and M's depthwise
-                sites timed by class; N exported by tools/export.py
+                gates): the 3x3 stride-1 kernel's quantizer and fused SiLU
+                on every finite bf16 value; calibrated on the card (f64
+                card against CPU), every distinct int8 site bit-equal to
+                its plain version, int8_predict_fn with the int8 and NMS
+                launches read around it (every office 3x3 stride-1 site
+                on csrc/int8_conv3x3.cuh), the share of int8-sim detections
+                matched, img/s beside bf16, the office 3x3 stride-1 class
+                (beside its time before it had its own kernel) and S's
+                and M's depthwise sites timed by class; N exported by tools/export.py
                 (--end2end, none and int8) on the card, loaded, run and
                 held to the eager function bit for bit, its launches
                 counted; tools/flops.py's line for N, S and M.
@@ -285,8 +289,9 @@ def model_layers0_2(model, dtype):
 
 def tensor_core_check(paths):
     """cuobjdump -sass of the built front-end, neck and stem libraries must
-    hold HMMA or HGMMA instructions, and the int8 conv library IMMA ones; a
-    missing cuobjdump fails."""
+    hold HMMA or HGMMA instructions, and the int8 conv library IMMA ones
+    (mma.sync.m16n8k32, int8_conv.cu) and IGMMA ones (wgmma.mma_async
+    m64nNk32 s8, int8_conv3x3.cuh); a missing cuobjdump fails."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.path.exists(tool), "cuobjdump not found: cannot show the tensor-core instructions")
@@ -295,10 +300,13 @@ def tensor_core_check(paths):
                               text=True, timeout=300)
         check(proc.returncode == 0, f"cuobjdump failed on {name}: {proc.stderr[-300:]}")
         count = {op: sum(f" {op}." in ln for ln in proc.stdout.splitlines())
-                 for op in ("HMMA", "HGMMA", "IMMA")}
+                 for op in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
         emit(phase="tensor_cores", kernel=name, lib=os.path.relpath(paths[name], HERE),
              **{f"{op.lower()}_instructions": v for op, v in count.items()})
         check(sum(count.values()) > 0, f"{name}: no HMMA, HGMMA or IMMA instruction in its SASS")
+        if name == "int8_conv":
+            check(count["IMMA"] > 0 and count["IGMMA"] > 0,
+                  f"int8_conv: want IMMA and IGMMA instructions in its SASS, got {count}")
 
 
 def train_batch(seed, b, img, device, max_boxes=120):
@@ -702,7 +710,7 @@ def main():
     for name in names:
         secs, log = _build.BUILD_LOG.get(name, (time.perf_counter() - t0, ""))
         ptxas = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "Used " in ln or "spill" in ln]
         emit(phase="build", kernel=name, seconds=secs,
              lib=os.path.relpath(paths[name], HERE), ptxas=ptxas)
     tensor_core_check(paths)
@@ -975,7 +983,10 @@ def main():
          "bound_ms": stem_s["bound_ms"], "bound_by": stem_s["bound_by"],
          "library_ms": stem_s["library_ms"]},
         *s_res["kernels"],
-        *[dict(k, launches=k["launches"] + xq["launches"][k["name"]]) for k in quant_kernels],
+        *[dict(k, launches=k["launches"] + xq["launches"][k["name"]]
+               - (xq["launches"]["int8_conv3x3"] if k["name"] == "int8_conv" else 0))
+          for k in quant_kernels],
+        xq["kernel3x3"],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -2088,8 +2099,11 @@ def _odd_int8_sites(dev):
     odd H and W, C of 1, 33 and 72, 24-channel 41x39 (3 x 19 tiles), every DW
     kernel size on 37x23, the depthwise tile edges of N's sites (k 9 on a
     whole 20x20 image at C 288, k 7 on 40x40 at C 144, k 3 at C 72 across
-    16-pixel tiles of 41x39); nonzero biases (U(0.2, 1)); bf16 and f32
-    inputs; the dense ones also with SiLU and with ReLU fused."""
+    16-pixel tiles of 41x39); the 3x3 stride-1 kernel's edges (H and W no
+    multiple of its tile, C of 24 and 40 padded to 32 and 64, O of 72 and
+    136 no multiple of its N tile, 1x1 and 3x5 images); nonzero biases
+    (U(0.2, 1)); bf16 and f32 inputs; the dense ones also with SiLU and with
+    ReLU fused."""
     import torch
 
     from mafyolo_tpu_torch.ops import quant_conv as QC
@@ -2107,7 +2121,11 @@ def _odd_int8_sites(dev):
                                         ((2, 72, 37, 23), 72, 9, 1, 72),
                                         ((2, 288, 20, 20), 288, 9, 1, 288),
                                         ((2, 144, 40, 40), 144, 7, 1, 144),
-                                        ((2, 72, 41, 39), 72, 3, 1, 72)):
+                                        ((2, 72, 41, 39), 72, 3, 1, 72),
+                                        ((2, 24, 41, 39), 72, 3, 1, 1),
+                                        ((2, 40, 23, 17), 136, 3, 1, 1),
+                                        ((1, 24, 1, 1), 40, 3, 1, 1),
+                                        ((2, 40, 3, 5), 24, 3, 1, 1)):
         w = torch.randn((o, shape[1] // groups, k, k), generator=gen)
         bias = torch.rand((o,), generator=gen) * 0.8 + 0.2
         pad = k // 2 if stride == 1 else (k - 1) // 2
@@ -2137,17 +2155,26 @@ def distinct_int8_cases(seen):
 
 def check_int8_cases(cases, what):
     """Each case's int8 kernel (then torch's activation) against its plain
-    version bit for bit, and a second launch bit-identical -> (the largest
-    |difference| by kind, a record a case)."""
+    version bit for bit, and a second launch bit-identical; a 3x3 stride-1
+    pad-1 dense case must take the 3x3 kernel both times, any other dense
+    case never -> (the largest |difference| by kind and for the 3x3
+    stride-1 cases, a record a case)."""
     import torch
 
     from mafyolo_tpu_torch.ops import quant_conv as QC
-    err, records = {"dense": 0.0, "dw": 0.0}, []
+    err, records = {"dense": 0.0, "dw": 0.0, "3x3s1": 0.0}, []
     for tag, p, x, act in cases:
+        before = QC.int8_conv.launches_3x3
         got, again = QC.int8_conv(x, p, act), QC.int8_conv(x, p, act)
+        three = p.kind == "dense" and QC.is_3x3s1(p.k, p.stride, p.pad)
+        check(QC.int8_conv.launches_3x3 - before == 2 * three,
+              f"{what}int8 {tag}: {QC.int8_conv.launches_3x3 - before} launches of the 3x3 "
+              f"stride-1 kernel in two calls")
         want = QC.ACTS[act](QC.int8_conv_plain(x, p))
         e = (got.float() - want.float()).abs().max().item()
         err[p.kind] = max(err[p.kind], e)
+        if three:
+            err["3x3s1"] = max(err["3x3s1"], e)
         records.append([tag, p.kind, list(x.shape), p.cout, p.k, p.stride, act, e])
         check(torch.equal(got, want), f"{what}int8 {p.kind} kernel differs from plain at {tag} "
               f"({act}): {e}")
@@ -2285,7 +2312,7 @@ def quant_phase(dev, folded, card):
     psim = Q.quantized_predict_fn(name, NC, folded, quant, device=dev)
     batches = [images(400 + i, BATCH).to(dev) for i in range(QUANT_BATCHES)]
     torch.cuda.synchronize()
-    QC.int8_conv.launches = QC.int8_dw.launches = 0
+    QC.int8_conv.launches = QC.int8_dw.launches = QC.int8_conv.launches_3x3 = 0
     G.greedy_nms.launches = FE.frontend_forward.launches = 0
     outs8, nms_per = [], []
     for bt in batches:
@@ -2294,10 +2321,11 @@ def quant_phase(dev, folded, card):
         nms_per.append(G.greedy_nms.launches - before)
     torch.cuda.synchronize()
     launches = {"int8_conv": QC.int8_conv.launches, "int8_dw": QC.int8_dw.launches,
-                "greedy_nms": G.greedy_nms.launches, "frontend": FE.frontend_forward.launches}
+                "greedy_nms": G.greedy_nms.launches, "frontend": FE.frontend_forward.launches,
+                "int8_conv3x3": QC.int8_conv.launches_3x3}
     n = len(batches)
-    check(launches["int8_conv"] == 66 * n and launches["int8_dw"] == 16 * n,
-          f"int8 launches {launches} over {n} predicts")
+    check(launches["int8_conv"] == 66 * n and launches["int8_dw"] == 16 * n
+          and launches["int8_conv3x3"] == 0, f"int8 launches {launches} over {n} predicts")
     check(launches["frontend"] == 0, f"the int8 predict launched the front-end kernel: {launches}")
     check(all(k in (1, 8) for k in nms_per), f"NMS launches a batch: {nms_per}")
     check_dets(outs8, BATCH, "int8 predict")
@@ -3370,11 +3398,23 @@ EXPORT_SHARE_FLOOR = {"maf-yolo-s": 0.087, "maf-yolo-m": 0.082, "yolov6n-office"
 # convs) and S's and M's depthwise sites.
 EXPORT_TIMED = {"maf-yolo-s": "dw", "maf-yolo-m": "dw", "yolov6n-office": "3x3s1",
                 "yolov6m-office": "3x3s1", "yolov6l-office": "3x3s1"}
+# The 3x3 stride-1 class's cold ms a predict on the windowed kernel of
+# int8_conv.cu, before the class had its own kernel (PERF.md §6, the two
+# card calls of its first run; NVIDIA H100 80GB HBM3, 700.00 W): the class
+# line's prev_ms. That path is not built again to be timed.
+EXPORT_PREV_MS = {"yolov6n-office": [3.629, 3.663], "yolov6m-office": [14.00, 13.87],
+                  "yolov6l-office": [24.02, 23.82]}
 
 
 def export_quant_phase(dev, card, folded_n):
     """Phase 27: S, M and the office graphs N, M and L in real int8, N
     exported with torch.export, and the FLOPs line.
+
+    export_quant_3x3, first: the 3x3 stride-1 kernel's quantizer on every
+    finite bf16 value and on f32 values at its rounding's edges, at five
+    scales, through 16 channels that take its 16-byte loads
+    (utils/sample.py:int8_quant_every_bf16), and its fused SiLU on
+    every finite bf16 value, each bit-equal to the plain version's.
 
     Per graph of EXPORT_GRAPHS, on random_deploy weights:
     export_quant_calib: PTQ max calibration on the card over
@@ -3387,15 +3427,19 @@ def export_quant_phase(dev, card, folded_n):
     site's tile (ops/quant_conv.py:conv_tile) is reported. export_quant_int8:
     int8_predict_fn (bf16) over EXPORT_BATCHES bs32@640 batches with the
     launch counts read around that run: one int8_conv launch a dense site
-    and one int8_dw launch a depthwise site a predict, 1 NMS launch a batch
-    (8 on overflow), no front-end launch; the int8 predict against the
+    and one int8_dw launch a depthwise site a predict, of them one launch of
+    the 3x3 stride-1 kernel (csrc/int8_conv3x3.cuh) a 3x3 stride-1 site
+    (every office one; none in S and M), 1 NMS launch a batch
+    (8 on overflow), no front-end launch; each 3x3 stride-1 site of the
+    bs2@640 check also took that kernel, twice (check_int8_cases); the int8 predict against the
     int8-sim one (quantized_predict_fn, f32) on a batch: the share of the
     int8-sim detections (score > 0.1) matched, at least
     EXPORT_SHARE_FLOOR; img/s of the int8 predict
     beside the same graph's bf16 Evaler.predict on the same batches; the
     kernel's ms per site of the class EXPORT_TIMED names, summed by class
     (tools/tune_kernels.py:time_int8_site: warm and cold, plain, bound,
-    _int_mm, cuDNN bf16).
+    _int_mm, cuDNN bf16), with the office class's time before its kernel
+    (EXPORT_PREV_MS) beside it as prev_ms.
 
     export: N (the slice's weights, calibrated here over
     EXPORT_CALIB_BATCHES batches) exported by tools/export.py at bs32@640 on
@@ -3409,7 +3453,10 @@ def export_quant_phase(dev, card, folded_n):
     flops: tools/flops.py's line for N, S and M at 640 on the card, deploy
     form; N's params 3.76M.
 
-    -> {"launches": the phase's launches by kernel, "records": by graph}."""
+    -> {"launches": the phase's launches by kernel (int8_conv: of the op,
+    int8_conv3x3: of them the 3x3 stride-1 kernel's), "records": by graph,
+    "kernel3x3": the kernels line's entry of the 3x3 stride-1 kernel (office
+    L's class, the largest)}."""
     import pickle
     import tempfile
 
@@ -3418,6 +3465,7 @@ def export_quant_phase(dev, card, folded_n):
 
     from mafyolo_tpu_torch.core import quant as Q
     from mafyolo_tpu_torch.models.office import office_config_graph
+    from mafyolo_tpu_torch.ops import _build
     from mafyolo_tpu_torch.ops import frontend as FE
     from mafyolo_tpu_torch.ops import greedy_nms as G
     from mafyolo_tpu_torch.ops import quant_conv as QC
@@ -3425,20 +3473,32 @@ def export_quant_phase(dev, card, folded_n):
     from mafyolo_tpu_torch.tools import flops as FL
     from mafyolo_tpu_torch.tools.tune_kernels import (int8_inputs, int8_site_class,
                                                       sum_int8_sites, time_int8_site)
-    from mafyolo_tpu_torch.utils.sample import evaler, images, random_deploy
+    from mafyolo_tpu_torch.utils.sample import (evaler, images, int8_quant_every_bf16,
+                                                int8_silu_every_bf16, random_deploy)
     from mafyolo_tpu_torch.utils.timing import cuda_ms
     bf16 = torch.bfloat16
 
     def counts():
         return {"int8_conv": QC.int8_conv.launches, "int8_dw": QC.int8_dw.launches,
-                "greedy_nms": G.greedy_nms.launches, "frontend": FE.frontend_forward.launches}
+                "greedy_nms": G.greedy_nms.launches, "frontend": FE.frontend_forward.launches,
+                "int8_conv3x3": QC.int8_conv.launches_3x3}
 
     def zero():
-        QC.int8_conv.launches = QC.int8_dw.launches = 0
+        QC.int8_conv.launches = QC.int8_dw.launches = QC.int8_conv.launches_3x3 = 0
         G.greedy_nms.launches = FE.frontend_forward.launches = 0
 
-    total = {"int8_conv": 0, "int8_dw": 0, "greedy_nms": 0}
-    records, shares = {}, {}
+    total = {"int8_conv": 0, "int8_dw": 0, "greedy_nms": 0, "int8_conv3x3": 0}
+    records, shares, err3 = {}, {}, 0.0
+
+    # ---- export_quant_3x3: the 3x3 stride-1 kernel's quantizer and fused
+    # SiLU on every finite bf16 value (and the quantizer's rounding edges
+    # in f32) against the plain version and torch
+    n_q, q_differ = int8_quant_every_bf16(dev)
+    n_s, s_differ = int8_silu_every_bf16(dev, 3)
+    emit(phase="export_quant_3x3", quantizer_values=n_q, quantizer_differ=q_differ,
+         silu_bf16_values=n_s, silu_differ=s_differ)
+    check(q_differ == 0 and s_differ == 0,
+          f"3x3 stride-1 kernel: quantizer differs on {q_differ}, SiLU on {s_differ} values")
     for name in EXPORT_GRAPHS:
         office = name.endswith("office")
         graph = office_config_graph(name) if office else name
@@ -3468,18 +3528,26 @@ def export_quant_phase(dev, card, folded_n):
         seen = int8_inputs(p8.model, Q.normalize(images(9, 2), bf16, dev))
         kinds = [p.kind for p, _, _ in seen.values()]
         n_dense, n_dw = kinds.count("dense"), kinds.count("dw")
+        n_3x3 = sum(int8_site_class(p) == "3x3s1" for p, _, _ in seen.values())
         n_distinct, cases = distinct_int8_cases(seen)
         err, _ = check_int8_cases(cases, f"{name}: ")
+        err3 = max(err3, err["3x3s1"])
         tiles, by_class = {}, {}
         for p, x in {tag: (p, x) for tag, p, x, _ in cases}.values():
             cls = int8_site_class(p)
             by_class[cls] = by_class.get(cls, 0) + 1
             if p.kind == "dense":
                 ho, wo = QC._out_hw(x.shape[2], x.shape[3], p.k, p.stride, p.pad)
-                tiles[f"{cls} {p.cin}->{p.cout} {ho}x{wo}"] = list(QC.conv_tile(
-                    p.k, p.stride, p.pad, ho, wo, QC.pad16(p.cin), x.element_size()))
+                tiles[f"{cls} {p.cin}->{p.cout} {ho}x{wo}"] = list(
+                    QC.plan3x3(ho, wo, p.cin, p.cout, x.element_size(), BATCH,
+                               _build.sm_count(dev.index)))[:7] if cls == "3x3s1" else \
+                    list(QC.conv_tile(p.k, p.stride, p.pad, ho, wo, QC.pad16(p.cin),
+                                      x.element_size()))
         emit(phase="export_quant_sites", model=name, sites=len(seen), dense=n_dense, dw=n_dw,
-             distinct=n_distinct, distinct_by_class=by_class, max_abs_err=err, tiles=tiles)
+             sites_3x3s1=n_3x3, distinct=n_distinct, distinct_by_class=by_class,
+             max_abs_err=err, tiles=tiles,
+             tiles_note="3x3s1: plan3x3 at bs32 (th, tw, bnw, split_n, n_split, stages, kc); "
+                        "other dense classes: conv_tile (th, tw)")
 
         # ---- export_quant_int8: the int8 predict, launch counts read around it
         batches = [images(910 + i, BATCH).to(dev) for i in range(EXPORT_BATCHES)]
@@ -3494,9 +3562,11 @@ def export_quant_phase(dev, card, folded_n):
         n = counts()
         for k in total:
             total[k] += n[k]
-        check(n["int8_conv"] == n_dense * len(batches) and n["int8_dw"] == n_dw * len(batches),
+        check(n["int8_conv"] == n_dense * len(batches) and n["int8_dw"] == n_dw * len(batches)
+              and n["int8_conv3x3"] == n_3x3 * len(batches),
               f"{name}: int8 launches {n} over {len(batches)} predicts ({n_dense} dense, "
-              f"{n_dw} dw sites)")
+              f"{n_3x3} of them 3x3 stride 1, {n_dw} dw sites)")
+        check(n_3x3 > 0 if office else n_3x3 == 0, f"{name}: {n_3x3} 3x3 stride-1 sites")
         check(n["frontend"] == 0, f"{name}: the int8 predict launched the front-end kernel")
         check(all(k in (1, 8) for k in nms_per), f"{name}: NMS launches a batch {nms_per}")
         check_dets(outs, BATCH, f"{name} int8 predict")
@@ -3517,10 +3587,13 @@ def export_quant_phase(dev, card, folded_n):
                 for mname, (p, xi, act) in int8_inputs(p8.model, x8).items()
                 if EXPORT_TIMED[name] in (p.kind, int8_site_class(p))]
         classes, _ = sum_int8_sites(recs)
+        if office:
+            classes["3x3s1"]["prev_ms"] = EXPORT_PREV_MS[name]
         records[name] = {"sites": len(seen), "dense": n_dense, "dw": n_dw, "rate": rate,
-                         "classes": classes, "share": shares[name]}
+                         "classes": classes, "share": shares[name], "launches": n}
         emit(phase="export_quant_int8", model=name, card=card, batches=len(batches),
              launches=n, nms_launches_per_batch=nms_per, int8_conv_per_predict=n_dense,
+             int8_conv3x3_per_predict=n_3x3,
              int8_dw_per_predict=n_dw, sim_dets_above_0p1=n_sim, int8_matched=m_sim,
              int8_share=shares[name], share_floor=EXPORT_SHARE_FLOOR[name], predict=rate,
              timed_class=EXPORT_TIMED[name], classes=classes,
@@ -3585,6 +3658,7 @@ def export_quant_phase(dev, card, folded_n):
                  batch_ms=mean_ms, device=prof_rec)
             want_ops = {"greedy_nms": 8, "int8_conv": 66 if quant == "int8" else 0,
                         "int8_dw": 16 if quant == "int8" else 0}
+            check(n["int8_conv3x3"] == 0, f"export {quant}: N launched the 3x3 kernel")
             check(ops == want_ops, f"export {quant}: graph ops {ops}")
             check({k: n[k] for k in want_ops} == want_ops and n["frontend"] == 0,
                   f"export {quant}: launches of the loaded program's run {n}")
@@ -3597,7 +3671,20 @@ def export_quant_phase(dev, card, folded_n):
     emit(phase="flops", lines=lines)
     check(lines[0].startswith(f"maf-yolo-n @{IMG}: params 3.76M"), f"flops: {lines[0]}")
     emit(phase="export_quant_shares", shares=shares, floors=EXPORT_SHARE_FLOOR, launches=total)
-    return {"launches": total, "records": records}
+    cls = records["yolov6l-office"]["classes"]["3x3s1"]
+    kernel3x3 = {
+        "name": "int8_conv3x3", "route": "cuda",
+        "source": "mafyolo_tpu_torch/csrc/int8_conv3x3.cuh",
+        "replaces": "none (a class of mafyolo_tpu/models/blocks.py:306-321, an XLA conv; "
+                    "redesigned from csrc/int8_conv.cu's windowed kernel)",
+        "launches": total["int8_conv3x3"], "max_abs_err": err3, "ms": cls["cold_ms"],
+        "warm_ms": cls["ms"], "plain_ms": cls["plain_ms"], "bound_ms": cls["bound_ms"],
+        "bound_by": cls["bound_by"], "library_ms": cls["int_mm_ms"],
+        "library_covers": "office L's 96 3x3 stride-1 sites a bs32@640 predict, summed: "
+                          "torch._int_mm on the quantized operands unfolded to [M, 9C] (no "
+                          "quantization or epilogue; the unfold not timed); cuDNN's bf16 "
+                          "conv of the sites in export_quant_int8's classes"}
+    return {"launches": total, "records": records, "kernel3x3": kernel3x3}
 
 
 if __name__ == "__main__":

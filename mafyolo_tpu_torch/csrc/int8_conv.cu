@@ -1,6 +1,8 @@
 // Real-int8 dense convolution (groups 1) of the quantized deploy graph:
-// 1x1 stride 1 and 3x3 stride 2 in MAF-YOLO, any k, stride and pad here,
-// with the activation that follows (none, ReLU or SiLU) fused.
+// 1x1 stride 1 and 3x3 stride 2 in MAF-YOLO, any k, stride and pad here but
+// 3x3 stride 1 pad 1 (the office graphs' class, csrc/int8_conv3x3.cuh,
+// included at the end), with the activation that follows (none, ReLU or
+// SiLU) fused.
 //
 // Replaces: the INT8_INFER branch of mafyolo_tpu/models/blocks.py:_RawConv
 // (306-321), an XLA conv with int8 operands and int32 accumulation (no
@@ -570,3 +572,7 @@ extern "C" int int8_conv(const void* x, const void* wfrag, const float* scale,
 extern "C" const char* error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+
+// The 3x3 stride-1 class (the office graphs' RepVGG and head convs): its own
+// kernel, built into this library.
+#include "int8_conv3x3.cuh"

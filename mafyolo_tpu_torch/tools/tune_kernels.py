@@ -7,6 +7,7 @@
     python -m mafyolo_tpu_torch.tools.tune_kernels stem
     python -m mafyolo_tpu_torch.tools.tune_kernels int8
     python -m mafyolo_tpu_torch.tools.tune_kernels int8_caps
+    python -m mafyolo_tpu_torch.tools.tune_kernels int8_3x3
 
 `frontend`: the bf16 front-end kernel at bs32@640 for MAF-YOLO-N, -S and -M
 over a list of (tile rows, tile columns, threads), each checked against the
@@ -50,9 +51,17 @@ compute, store); then sums per class of site and per kernel; then a cold
 sweep of the tiles at each site with a tile choice (dense k > 1: the widths
 ops/quant_conv.py:conv_tile weighs; DW: square sides and whole images: the
 table ops/quant_conv.py:DW_TILE was read from it).
+Then every 3x3 stride-1 site of office N's, M's and L's int8 predicts at
+bs32@640 (the class csrc/int8_conv3x3.cuh takes): the same per site, the
+phase shares window, B wait, MMA, epilogue, store; sums per graph.
 `int8_caps`: each int8 kernel rebuilt with each of its compile-time knobs in
 INT8_CAPS (registers a thread, B lookahead) and timed at every
-site of its kind, sums per class: the kernels' defaults were read from it.
+site of its kind (N's and office N's 3x3 stride-1 sites), sums per class:
+the kernels' defaults were read from it.
+`int8_3x3`: the 3x3 stride-1 kernel at office N's, M's and L's sites: the
+plan's cold ms and phase shares per distinct site, then a cold sweep of
+output tiles x wgmma N x rings (int8_3x3's docstring); its last line is
+what ops/quant_conv.py:TABLE3 and RING3 were read from.
 Weights and inputs are random, from a seed. Each prints one JSON object a
 line and needs a CUDA card.
 """
@@ -390,16 +399,22 @@ def int_mm_operands(p, x):
 
 
 INT8_PHASES = {"dense": ("stage", "mma", "epilogue", "store"),
-               "dw": ("stage", "compute", "store")}
+               "dw": ("stage", "compute", "store"),
+               "3x3s1": ("window", "b_wait", "mma", "epilogue", "store")}
 
 
 def int8_phases(p, x, act=None, tile=None):
     """The share of thread 0's clocks each phase of one launch takes, summed
-    over the blocks."""
-    names = INT8_PHASES[p.kind]
+    over the blocks (tile: a conv_tile, a dw_tile or, at a 3x3 stride-1
+    site, a Plan3)."""
+    three = p.kind == "dense" and QC.is_3x3s1(p.k, p.stride, p.pad)
+    names = INT8_PHASES["3x3s1" if three else p.kind]
     clocks = torch.zeros(len(names), dtype=torch.int64, device=x.device)
-    if p.kind == "dense":
-        QC.conv_launch(x, p, act if act in QC.FUSED_ACTS else None, tile, clocks)
+    fused = act if act in QC.FUSED_ACTS else None
+    if three:
+        QC.conv3x3_launch(x, p, fused, tile, clocks)
+    elif p.kind == "dense":
+        QC.conv_launch(x, p, fused, tile, clocks)
     else:
         QC.dw_launch(x, p, tile, clocks)
     torch.cuda.synchronize()
@@ -483,6 +498,38 @@ def int8_tiles(p, x):
                                                                      set()))]
 
 
+OFFICE_GRAPHS = ("yolov6n-office", "yolov6m-office", "yolov6l-office")
+
+
+def office_3x3_inputs(name, dev):
+    """{module name: (pack, input, act)} of the 3x3 stride-1 int8 sites of
+    an office graph's int8 predict (random deploy weights, max-calibrated on
+    2 bs32@640 batches) on one bs32@640 batch, bf16."""
+    from mafyolo_tpu_torch.core import quant as Q
+    from mafyolo_tpu_torch.models.office import office_config_graph
+    graph = office_config_graph(name)
+    folded = sample.random_deploy(graph, dev)[0]
+    calib = [sample.images(300 + i, BATCH).to(dev) for i in range(2)]
+    quant = Q.ptq_calibrate(graph, 80, folded, calib, max_batches=2, device=dev)
+    p8 = Q.int8_predict_fn(graph, 80, folded, quant, device=dev)
+    x = Q.normalize(sample.images(400, BATCH).to(dev), torch.bfloat16, dev)
+    return {n: v for n, v in int8_inputs(p8.model, x).items()
+            if int8_site_class(v[0]) == "3x3s1"}
+
+
+def office_3x3(dev):
+    """time_int8_site (with phase shares) at every 3x3 stride-1 site of
+    office N, M and L's int8 predicts at bs32@640: one line a site, then the
+    sums of the class per graph."""
+    for name in OFFICE_GRAPHS:
+        recs = [{"model": name, "site": n, "kind": p.kind, "class": int8_site_class(p),
+                 **time_int8_site(p, xi, act, plain=False, phases=True)}
+                for n, (p, xi, act) in office_3x3_inputs(name, dev).items()]
+        for r in recs:
+            print(json.dumps(r), flush=True)
+        print(json.dumps({"model": name, "classes": sum_int8_sites(recs)[0]}), flush=True)
+
+
 def int8(dev):
     from mafyolo_tpu_torch.core import quant as Q
     name = "maf-yolo-n"
@@ -530,6 +577,97 @@ def int8(dev):
         del sets
     print(json.dumps({"sweep_cold_ms_by_class": {
         c: {t: [sum(v), len(v)] for t, v in d.items()} for c, d in summed.items()}}), flush=True)
+    office_3x3(dev)
+
+
+# The 3x3 stride-1 sweep: output tiles (rows, columns, split_n), and rings
+# (slots, 16-byte K chunks a slot) tried with the best tile of each class.
+SWEEP3_TILES = ((8, 8, True), (16, 8, False), (8, 16, True), (16, 16, False), (32, 8, False),
+                (8, 32, False))
+SWEEP3_RINGS = ((2, 8), (3, 8), (4, 8), (6, 8), (4, 4), (6, 4), (8, 4))
+
+
+def int8_3x3(dev):
+    """The 3x3 stride-1 kernel at office N's, M's and L's sites (bs32@640,
+    bf16): per distinct site (C, O, side, activation; `n` the sites a
+    predict has of it) the plan3x3 plan's cold ms and phase shares, then a
+    cold sweep of SWEEP3_TILES (wgmma N by the plan's rule; also the other
+    N widths with the plan's tile) and of SWEEP3_RINGS with the site's best
+    tile, each checked bit-equal to the plain version first. The last line
+    sums each tile over the sites of a side class (20, 40, 80 px; counted
+    n times): TABLE3 lists them fastest first; each ring summed over every
+    site: RING3 starts with the fastest; and per graph the plans' cold ms
+    and each site's fastest of the sweep, summed over a predict's sites."""
+    by_tile, by_ring, planned, fastest = {}, {}, {}, {}
+    sms = _build.sm_count(dev.index)
+    for name in OFFICE_GRAPHS:
+        seen = office_3x3_inputs(name, dev)
+        distinct = {}
+        for n, (p, xi, act) in seen.items():
+            key = (p.cin, p.cout, xi.shape[2], act)
+            distinct.setdefault(key, [n, p, xi, act, 0])[4] += 1
+        for (c, o, side, act), (n, p, xi, _, count) in distinct.items():
+            want = QC.ACTS[act](QC.int8_conv_plain(xi, p))
+            sets = sample.cold_sets((xi,))
+            cls = 20 if side <= 24 else 40 if side <= 48 else 80
+            fused = act if act in QC.FUSED_ACTS else None
+
+            def cold(plan):
+                def run(xx):
+                    return QC.conv3x3_launch(xx, p, fused, plan)
+                ok = torch.equal(QC.ACTS[None if fused else act](run(xi)), want)
+                return ok, cuda_ms(sample.in_turn(run, sets), max(10, len(sets)))
+
+            def cut(th, tw, split_n, bnw=None, ring=None):
+                return QC.cut3x3(side, side, c, o, 2, BATCH, sms, th, tw, split_n, bnw, ring)
+            picked = QC.plan3x3(side, side, c, o, 2, BATCH, sms)
+            ok, ms = cold(picked)
+            planned[name] = planned.get(name, 0.0) + count * ms
+            site_best = ms
+            print(json.dumps({"model": name, "site": n, "c": c, "o": o, "side": side, "act": act,
+                              "n": count, "plan": picked._asdict(), "equal_to_plain": ok,
+                              "cold_ms": ms, "phase_share": int8_phases(p, xi, act, picked)}),
+                  flush=True)
+            best = None
+            for th, tw, split_n in SWEEP3_TILES:
+                base = cut(th, tw, split_n)
+                if base is None:
+                    continue
+                widths = set(QC.BNW3) if (th, tw, split_n) == (
+                    picked.th, picked.tw, picked.split_n) else {base.bnw}
+                for bnw in sorted(widths):
+                    plan = base if bnw == base.bnw else cut(th, tw, split_n, bnw)
+                    if plan is None:
+                        continue
+                    ok, ms = cold(plan)
+                    print(json.dumps({"model": name, "c": c, "o": o, "side": side,
+                                      "plan": plan._asdict(), "equal_to_plain": ok,
+                                      "cold_ms": ms}), flush=True)
+                    site_best = min(site_best, ms)
+                    if plan is base:
+                        key = str([th, tw, split_n])
+                        by_tile.setdefault(cls, {}).setdefault(key, 0.0)
+                        by_tile[cls][key] += count * ms
+                        if best is None or ms < best[0]:
+                            best = (ms, (th, tw, split_n))
+            for ring in SWEEP3_RINGS:
+                plan = cut(*best[1], ring=ring)
+                if plan is None:
+                    continue
+                ok, ms = cold(plan)
+                print(json.dumps({"model": name, "c": c, "o": o, "side": side,
+                                  "plan": plan._asdict(), "equal_to_plain": ok,
+                                  "cold_ms": ms}), flush=True)
+                by_ring[str(list(ring))] = by_ring.get(str(list(ring)), 0.0) + count * ms
+                site_best = min(site_best, ms)
+            fastest[name] = fastest.get(name, 0.0) + count * site_best
+            del sets
+        del seen
+        torch.cuda.empty_cache()
+    print(json.dumps({"tiles_by_side": {c: sorted(((v, k) for k, v in d.items()))
+                                        for c, d in by_tile.items()},
+                      "rings": sorted((v, k) for k, v in by_ring.items()),
+                      "planned_ms": planned, "fastest_ms": fastest}), flush=True)
 
 
 # The compile-time knobs of the int8 kernels the caps sweep rebuilds them
@@ -553,6 +691,8 @@ def int8_caps(dev):
     p8 = Q.int8_predict_fn(name, 80, folded, quant, device=dev)
     seen = int8_inputs(p8.model, Q.normalize(sample.images(400, BATCH).to(dev),
                                              torch.bfloat16, dev))
+    seen.update({f"yolov6n-office.{n}": v
+                 for n, v in office_3x3_inputs("yolov6n-office", dev).items()})
     default = dict(_build.EXTRA_FLAGS)
     for lib, caps in INT8_CAPS.items():
         kind = "dense" if lib == "int8_conv" else "dw"
@@ -569,7 +709,7 @@ def int8_caps(dev):
                 "kernel": lib, "cap": dict(zip(_CAP_MACROS[lib], cap)),
                 "equal_to_plain": all(r["equal_to_plain"] for r in recs),
                 "registers": sorted({int(ln.split("Used ")[1].split()[0]) for ln in log
-                                     if "registers" in ln}),
+                                     if "Used " in ln}),
                 "spill_bytes_max": max([int(ln.split(",")[1].split()[0]) for ln in log
                                         if "spill stores" in ln] + [0]),
                 "ms": kernels[kind]["ms"], "cold_ms": kernels[kind]["cold_ms"],
@@ -586,7 +726,7 @@ def _out_hw(p, x):
 
 
 COMMANDS = {"frontend": frontend, "neck": neck, "dw_grad": dw_grad, "nms": nms, "stem": stem,
-            "int8": int8, "int8_caps": int8_caps}
+            "int8": int8, "int8_caps": int8_caps, "int8_3x3": int8_3x3}
 
 if __name__ == "__main__":
     args = sys.argv[1:]

@@ -9,6 +9,7 @@ state_dict keys (the inverse of utils/torch_bridge.py, for `.pt` files made
 from random weights)."""
 from __future__ import annotations
 
+import math
 from pathlib import Path
 
 import numpy as np
@@ -230,23 +231,69 @@ def cold_sets(tensors, l2_bytes=L2_BYTES):
                                      for t in tensors) for _ in range(n - 1)]
 
 
-def int8_silu_every_bf16(dev):
-    """The int8 conv's fused SiLU epilogue on every finite bf16 value (a 1x1
-    conv whose scale is 0 and whose bias holds the values) against torch's
-    bf16 SiLU: (values, how many differ)."""
+def int8_silu_every_bf16(dev, k=1):
+    """The int8 conv's fused SiLU epilogue on every finite bf16 value (a k x k
+    conv, 1 for the windowed kernel, 3 for the 3x3 stride-1 one, whose scale
+    is 0 and whose bias holds the values) against torch's bf16 SiLU:
+    (values, how many differ)."""
     import dataclasses
 
     from mafyolo_tpu_torch.ops import quant_conv as QC
     vals = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
     vals = vals.float()[torch.isfinite(vals.float())]
-    w = torch.randn((vals.numel(), 16, 1, 1), generator=torch.Generator().manual_seed(13))
-    p = QC.pack(w, torch.zeros(vals.numel()), torch.tensor(1.0), 1, 0, 1).to(dev)
+    w = torch.randn((vals.numel(), 16, k, k), generator=torch.Generator().manual_seed(13))
+    p = QC.pack(w, torch.zeros(vals.numel()), torch.tensor(1.0), 1, k // 2, 1).to(dev)
     p = dataclasses.replace(p, scale=torch.zeros_like(p.scale), bias=vals.to(dev))
     x = torch.ones((1, 16, 1, 1), device=dev, dtype=torch.bfloat16) \
         .contiguous(memory_format=torch.channels_last)
     got = QC.int8_conv(x, p, "silu").flatten()
     want = torch.nn.functional.silu(vals.to(dev, torch.bfloat16))
     return vals.numel(), int((got != want).sum())
+
+
+# Activation amaxes the quantizer check runs at: a typical one, small and
+# large ones, one whose scale is no simple fraction, and the floor 1e-12.
+QUANT_CHECK_AMAX = (2.5, 0.0123, 7.77, 333.3, 1e-12)
+
+
+def int8_quant_every_bf16(dev):
+    """The 3x3 stride-1 kernel's quantizer (csrc/int8_conv3x3.cuh: Quant,
+    which its 16-byte loads take) against the plain version's: a 3x3 conv of
+    16 input channels whose output channel o is 127 times the quantized
+    centre pixel of input channel o (bijective in it), over one 64 x 64 image
+    holding every finite bf16 value in its 16 channels (the others 0), and
+    over f32 images of the values next to each half-integer multiple of the
+    scale (the rounding's edges: 0-3 ulps either side of (k + 1/2) x_scale
+    for k in -130..129, padded with zeros to whole pixels), at each of
+    QUANT_CHECK_AMAX, bit for bit -> (values checked, how many outputs
+    differ). On a CUDA device every probe is first asserted to take the
+    16-byte loads (ops/quant_conv.py:load_path3x3)."""
+    from mafyolo_tpu_torch.ops import quant_conv as QC
+    c = 16
+    w = torch.zeros((c, c, 3, 3))
+    w[torch.arange(c), torch.arange(c), 1, 1] = 1.0
+    every = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    every = torch.where(torch.isfinite(every.float()), every, torch.zeros_like(every))
+    checked = differ = 0
+    for amax in QUANT_CHECK_AMAX:
+        p = QC.pack(w, torch.zeros(c), torch.tensor(amax), 1, 1, 1).to(dev)
+        xs = torch.tensor(p.x_scale, dtype=torch.float32)
+        half = (torch.arange(-130, 130, dtype=torch.float32) + 0.5) * xs
+        edge = [half]
+        for _ in range(3):
+            edge = [torch.nextafter(edge[0], torch.tensor(-math.inf))] + edge + \
+                [torch.nextafter(edge[-1], torch.tensor(math.inf))]
+        edge = torch.cat(edge)
+        edge = torch.cat([edge, torch.zeros(-edge.numel() % (6 * c))])
+        for vals, h in ((every, 64), (edge, 6)):
+            # NHWC: pixel p's channel o holds value c p + o
+            x = vals.reshape(1, h, -1, c).permute(0, 3, 1, 2).to(dev)
+            if x.device.type == "cuda":
+                assert QC.load_path3x3(x) == 0, "the quantizer probe missed the 16-byte loads"
+            got, want = QC.int8_conv(x, p), QC.int8_conv_plain(x, p)
+            checked += vals.numel()
+            differ += int((got != want).sum())
+    return checked, differ
 
 
 def in_turn(fn, sets):

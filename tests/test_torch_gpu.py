@@ -545,6 +545,124 @@ def test_int8_conv_fused_activation_matches_torch(cuda_device, dtype, act, shape
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape,cout", [((2, 64, 80, 80), 64),      # office N's P3 RepBlock
+                                        ((2, 256, 40, 40), 256)])   # office M's P4 RepBlock
+def test_int8_conv3x3_kernel_at_office_sites(cuda_device, dtype, act, shape, cout):
+    """The 3x3 stride-1 kernel (csrc/int8_conv3x3.cuh: wgmma over the
+    quantized window, weights by tensor copies) at two office sites: the
+    route takes it (launches_3x3), its output equals the plain version's
+    then torch's activation bit for bit, and a second launch is identical."""
+    from mafyolo_tpu_torch.ops import quant_conv as Q
+    p = _int8_pack(shape[1], cout, 3, 1, 1, 13, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 1.2 + 0.3).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    before = (Q.int8_conv.launches, Q.int8_conv.launches_3x3)
+    got, again = Q.int8_conv(x, p, act), Q.int8_conv(x, p, act)
+    want = Q.ACTS[act](Q.int8_conv_plain(x, p))
+    torch.cuda.synchronize()
+    assert (Q.int8_conv.launches - before[0], Q.int8_conv.launches_3x3 - before[1]) == (2, 2)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+    assert torch.equal(got, again)
+
+
+def test_int8_conv3x3_refuses_a_stale_fragment_pack(cuda_device):
+    """A 3x3 stride-1 site handed w_kernel in the windowed kernel's fragment
+    layout (what an int8 program exported before the class had its own
+    kernel holds) raises on the card and launches nothing; its own
+    pack_3x3 layout runs and equals the plain version."""
+    import torch.nn.functional as TF
+
+    from mafyolo_tpu_torch.ops import quant_conv as Q
+    from mafyolo_tpu_torch.ops._mma_pack import pack_b_s8, pad16
+    p = _int8_pack(40, 24, 3, 1, 1, 15, cuda_device)
+    taps = TF.pad(p.w_q.permute(2, 3, 1, 0), (0, 0, 0, pad16(40) - 40))
+    stale = pack_b_s8(taps.reshape(9 * pad16(40), 24))
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    x = torch.randn((1, 40, 9, 11), generator=gen, device=cuda_device).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+
+    def op(w_kernel):
+        return torch.ops.mafyolo.int8_conv(x, p.w_q, w_kernel, p.scale, p.bias, p.x_scale_t,
+                                           p.x_scale, p.stride, p.pad, None)
+    before = (Q.int8_conv.launches, Q.int8_conv.launches_3x3)
+    with pytest.raises(ValueError, match="pack the weights again"):
+        op(stale)
+    assert (Q.int8_conv.launches, Q.int8_conv.launches_3x3) == before
+    assert torch.equal(op(p.w_kernel), Q.int8_conv_plain(x, p))
+
+
+def test_int8_conv3x3_quantizer_and_silu_every_bf16(cuda_device):
+    """The 3x3 stride-1 kernel's quantizer (a clamp, Markstein's corrected
+    quotient, an add for the rounding) equals the plain version's IEEE
+    division and rounding on every finite bf16 value and on f32 values at
+    the rounding's edges, at several scales, through 16 channels that take
+    its 16-byte loads; its fused SiLU equals torch's on every finite bf16
+    value (utils/sample.py)."""
+    from mafyolo_tpu_torch.utils.sample import int8_quant_every_bf16, int8_silu_every_bf16
+    n, differ = int8_quant_every_bf16(cuda_device)
+    assert n > 5 * 65000 and differ == 0, differ
+    n, differ = int8_silu_every_bf16(cuda_device, 3)
+    assert n == 65280 and differ == 0, differ
+
+
+def test_office_n_int8_opcheck_and_export_on_the_card(cuda_device, tmp_path):
+    """Office N in int8 (bs2@128, nc 7) on the card: torch.library.opcheck of
+    mafyolo::int8_conv at every distinct site of its predict (36 of them
+    3x3 stride 1, whose w_kernel is pack_3x3's layout), then tools/export.py
+    --quant int8 --end2end: the loaded program launches 50 int8_conv (36 by
+    the 3x3 stride-1 kernel) and 8 NMS kernels a run and equals the eager
+    function bit for bit."""
+    import pickle
+
+    from mafyolo_tpu_torch.core import quant as Q
+    from mafyolo_tpu_torch.models.graph import parse_graph
+    from mafyolo_tpu_torch.models.office import office_config_graph
+    from mafyolo_tpu_torch.ops import quant_conv as QC
+    from mafyolo_tpu_torch.tools import export as E
+    from mafyolo_tpu_torch.tools.tune_kernels import int8_inputs
+    from mafyolo_tpu_torch.utils.bridge import random_folded_variables
+    graph = office_config_graph("yolov6n-office")
+    folded = random_folded_variables(parse_graph(graph, nc=7)[0], seed=3)
+    imgs = torch.from_numpy(u8_images(2, (2, 128, 128, 3))).to(cuda_device)
+    with torch.no_grad():
+        quant = Q.ptq_calibrate(graph, 7, folded, [imgs], max_batches=1, device=cuda_device)
+        p8 = Q.int8_predict_fn(graph, 7, folded, quant, device=cuda_device)
+        seen = int8_inputs(p8.model, Q.normalize(imgs, torch.bfloat16, cuda_device))
+    distinct = {}
+    for p, x, act in seen.values():
+        distinct.setdefault((p.cin, p.cout, p.k, p.stride, tuple(x.shape), act), (p, x, act))
+    n3 = 0
+    for p, x, act in distinct.values():
+        n3 += QC.is_3x3s1(p.k, p.stride, p.pad)
+        torch.library.opcheck(torch.ops.mafyolo.int8_conv.default,
+                              (x, p.w_q, p.w_kernel, p.scale, p.bias, p.x_scale_t, p.x_scale,
+                               p.stride, p.pad, act))
+    assert n3 > 0 and len(seen) == 50
+    weights = str(tmp_path / "office_n.npck")
+    with open(weights, "wb") as f:
+        pickle.dump({"model": folded, "quant": quant, "folded": True, "ema": None,
+                     "meta": {"graph": graph, "nc": 7}}, f, protocol=4)
+    path = E.run(E.get_args_parser().parse_args(
+        ["--weights", weights, "--img-size", "128", "--batch-size", "2", "--end2end",
+         "--conf-thres", "0.03", "--quant", "int8", "--out", str(tmp_path / "x"),
+         "--device", str(cuda_device)]))
+    run = torch.export.load(path).module()
+    eager = E.deploy_function(graph, 7, folded, quant, "int8", True, 0.03, 0.45, 300,
+                              cuda_device)
+    with torch.no_grad():
+        want = eager(imgs)
+        before = (QC.int8_conv.launches, QC.int8_conv.launches_3x3, G.greedy_nms.launches)
+        got = run(imgs)
+        torch.cuda.synchronize()
+    after = (QC.int8_conv.launches, QC.int8_conv.launches_3x3, G.greedy_nms.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (50, 36, 8)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_int8_fused_silu_every_bf16_value(cuda_device):
     """Every finite bf16 value through the fused SiLU epilogue equals torch's
     bf16 SiLU of it (utils/sample.py:int8_silu_every_bf16)."""

@@ -9,25 +9,33 @@ native image space (scale_coords) -> COCO-format detections -> COCO mAP
 batch whose H or W is not a multiple of 4, and a graph that does not start
 with the RepVGG 3x3/s2 pair (office L), runs the deploy model's own layers.
 
+On the card a predict is one replay of CUDA graphs captured at the first
+call of its input shape and thresholds (core/graphs.py), as the JAX Evaler
+jits it; on the CPU it runs eagerly.
+
 speed_result times h2d, infer + NMS and post per batch; on the card each
 part ends in torch.cuda.synchronize(), so each time covers its own part.
+The loop copies a batch to the device itself (the split's h2d part), and
+the predict copies it on into its graph's static input.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from mafyolo_tpu_torch.core.graphs import PredictGraphs
 from mafyolo_tpu_torch.data.datasets import DetectionDataset
 from mafyolo_tpu_torch.data.loader import create_dataloader
 from mafyolo_tpu_torch.models import build_model
 from mafyolo_tpu_torch.models.reparam import fold_variables
 from mafyolo_tpu_torch.ops.frontend import (frontend_build, frontend_forward,
                                             frontend_skip_until)
-from mafyolo_tpu_torch.ops.nms import fused_decode_nms
+from mafyolo_tpu_torch.ops.nms import decode_nms_stages, fused_decode_nms
 from mafyolo_tpu_torch.utils.bridge import folded_to_state_dict
 from mafyolo_tpu_torch.utils.coco_eval import COCOEvaluator
 from mafyolo_tpu_torch.utils.events import LOGGER
@@ -93,6 +101,7 @@ class Evaler:
         # place of self.predict (the quantize CLI's int8 predicts), as the
         # JAX Evaler's _predict
         self._predict = None
+        self.graphs = None
 
     # ---------- model ----------
 
@@ -114,6 +123,12 @@ class Evaler:
         self.model = model.to(dtype=self.dtype,
                               memory_format=torch.channels_last)
         self.nc = nc
+        # graphs hold the old weights' addresses: a new model gets new graphs.
+        # They call the stages through a weak reference, so that the Evaler
+        # and its graphs are freed as soon as the Evaler is dropped.
+        stages = weakref.WeakMethod(self._stages)
+        self.graphs = (PredictGraphs(lambda x, **static: stages()(x, **static), self.device)
+                       if self.device.type == "cuda" else None)
         return self.model
 
     # ---------- data ----------
@@ -151,9 +166,25 @@ class Evaler:
 
     @torch.no_grad()
     def predict(self, imgs_u8, multi_label: bool = True):
-        """uint8 BGR NHWC images -> dict(boxes [B,max_det,4] xyxy px, scores,
-        classes, valid), score-descending per image. multi_label=False keeps
-        only each anchor's best class (the inference CLI's NMS)."""
+        """uint8 BGR NHWC images (numpy, or a tensor on any device) ->
+        dict(boxes [B,max_det,4] xyxy px, scores, classes, valid),
+        score-descending per image. multi_label=False keeps only each
+        anchor's best class (the inference CLI's NMS).
+
+        On the card: one replay of the CUDA graphs of the key (the images'
+        shape and dtype, multi_label, and conf_thres, iou_thres and max_det
+        as they are at the call); the first call of a key captures them, as
+        jax.jit traces a new shape. On the CPU: predict_eager."""
+        if self.graphs is None:
+            return self.predict_eager(imgs_u8, multi_label)
+        return self.graphs(imgs_u8, multi_label=multi_label, conf_thres=self.conf_thres,
+                           iou_thres=self.iou_thres, max_det=self.max_det)
+
+    @torch.no_grad()
+    def predict_eager(self, imgs_u8, multi_label: bool = True):
+        """The same predict as eager launches, the overflow flag read on the
+        host between the NMS stages: the CPU's path, and on the card the
+        yardstick of the graphs."""
         if isinstance(imgs_u8, np.ndarray):
             imgs_u8 = torch.from_numpy(imgs_u8)
         outs = self.forward(imgs_u8.to(self.device))
@@ -161,6 +192,13 @@ class Evaler:
             outs, strides=self.model.strides, reg_max=self.model.reg_max,
             conf_thres=self.conf_thres, iou_thres=self.iou_thres,
             max_det=self.max_det, multi_label=multi_label)
+
+    def _stages(self, x, multi_label, conf_thres, iou_thres, max_det):
+        """The predict of device images x as decode_nms_stages gives it."""
+        return decode_nms_stages(
+            self.forward(x), strides=self.model.strides, reg_max=self.model.reg_max,
+            conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+            multi_label=multi_label)
 
     def scale_coords(self, img1_shape, coords, img0_shape, ratio_pad=None):
         """Letterbox-inverse rescale of numpy xyxy boxes, in place

@@ -29,11 +29,21 @@ from mafyolo_tpu_torch.utils.bridge import (quant_variables_to_state_dict, state
 from mafyolo_tpu_torch.utils.events import LOGGER
 
 
-def normalize(imgs_u8, dtype, device) -> torch.Tensor:
-    """uint8 BGR NHWC -> RGB in [0, 1] in dtype on device (a true division
-    by 255: the divisor is a tensor on the device)."""
+def divisor_255(dtype, device) -> torch.Tensor:
+    """255 as a 0-d tensor of dtype on device: normalize's divisor. A
+    tensor, not a Python number: torch multiplies by the reciprocal of a
+    scalar divisor, and the JAX package divides."""
+    return torch.tensor(255.0, dtype=dtype, device=device)
+
+
+def normalize(imgs_u8, dtype, device, divisor=None) -> torch.Tensor:
+    """uint8 BGR NHWC -> RGB in [0, 1] in dtype on device, a true division
+    by divisor_255(dtype, device), made here unless given (a CUDA graph
+    cannot capture the copy that makes it)."""
     x = torch.as_tensor(imgs_u8).to(device)
-    return x.flip(-1).to(dtype) / torch.tensor(255.0, dtype=dtype, device=x.device)
+    if divisor is None:
+        divisor = divisor_255(dtype, x.device)
+    return x.flip(-1).to(dtype) / divisor
 
 
 def quant_model(graph, nc: int, folded_params: Dict, quant_tree: Optional[Dict] = None,
@@ -301,23 +311,45 @@ def int8_predict_fn(graph, nc: int, folded_params: Dict, quant_tree: Dict,
     decode + greedy NMS: a function of uint8 BGR NHWC images -> the
     detections dict. Needs a fully calibrated tree (every act_amax > 0):
     sensitive-layer skipping is a fake-quant concept. strides and reg_max
-    default to the graph's own (the model's)."""
+    default to the graph's own (the model's).
+
+    On the card each call is one replay of the CUDA graphs of its input
+    shape and thresholds (core/graphs.py: captured at the first call of a
+    key, as jax.jit traces it); on the CPU it runs eagerly. A call may name
+    conf_thres, iou_thres, max_det or multi_label to replace the defaults
+    given here. The function's `eager` attribute runs the same predict as
+    eager launches on any device, `graphs` holds the captured keys (None on
+    the CPU) and `model` the quant model."""
     for _, leaf in _paths(quant_tree):
         if float(np.asarray(leaf).min()) <= 0:
             raise ValueError("int8 deploy needs every act_amax > 0 "
                              "(run calibration without skip_layers)")
-    from mafyolo_tpu_torch.ops.nms import fused_decode_nms
+    from mafyolo_tpu_torch.core.graphs import PredictGraphs
+    from mafyolo_tpu_torch.ops.nms import decode_nms_stages, fused_decode_nms
 
     model = quant_model(graph, nc, folded_params, quant_tree, mode="int8", device=device,
                         dtype=dtype)
     strides = model.strides if strides is None else strides
     reg_max = model.reg_max if reg_max is None else reg_max
+    divisor = divisor_255(dtype, device)
+    thresholds = dict(conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+                      multi_label=True)
 
     @torch.no_grad()
-    def predict(imgs_u8):
-        outs = model(normalize(imgs_u8, dtype, device))
+    def eager(imgs_u8, **static):
+        outs = model(normalize(imgs_u8, dtype, device, divisor))
         return fused_decode_nms(outs, strides=strides, reg_max=reg_max,
-                                conf_thres=conf_thres, iou_thres=iou_thres,
-                                max_det=max_det)
-    predict.model = model
+                                **{**thresholds, **static})
+
+    def stages(x, **static):
+        return decode_nms_stages(model(normalize(x, dtype, device, divisor)), strides=strides,
+                                 reg_max=reg_max, **static)
+
+    graphs = PredictGraphs(stages, device) if torch.device(device).type == "cuda" else None
+
+    def predict(imgs_u8, **static):
+        if graphs is None:
+            return eager(imgs_u8, **static)
+        return graphs(imgs_u8, **{**thresholds, **static})
+    predict.model, predict.eager, predict.graphs = model, eager, graphs
     return predict

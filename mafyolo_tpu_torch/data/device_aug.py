@@ -118,17 +118,56 @@ def take_rows(p: Dict, rows) -> Dict:
     return {k: v[rows] if torch.is_tensor(v) else v for k, v in p.items()}
 
 
+def _fma(a, b, c):
+    """a * b + c in f32 with one rounding, as a fused multiply-add gives it:
+    the f32 product is exact in f64 and the f64 sum rounds once more only
+    where it needs more than 53 bits. The operands broadcast; the sum is
+    written straight to f32, so no f64 tensor of the result's size is
+    made."""
+    out = torch.empty(torch.broadcast_shapes(a.shape, b.shape, c.shape), dtype=torch.float32,
+                      device=c.device)
+    return torch.add(a.double() * b.double(), c.double(), out=out)
+
+
+def inv3(m):
+    """Inverses of [B,3,3] f32 matrices in the arithmetic of the JAX
+    package's jnp.linalg.inv on the CPU: LAPACK's LU with partial pivoting
+    (a multiplier is the entry times the pivot's reciprocal, the update a
+    product then a difference), then the solve of the permuted identity, a
+    unit lower triangle and an upper one, each unknown its right-hand side
+    times the diagonal's reciprocal and each elimination a fused
+    multiply-add. Bit for bit on the affine matrices that draw() makes
+    (last row 0, 0, 1), where torch.linalg.inv rounds otherwise in about 6%
+    of the entries; on a general 3x3 matrix LAPACK's LU rounds its updates
+    in another order."""
+    idx = torch.arange(3, device=m.device)
+    ab = torch.cat([m, torch.eye(3, dtype=m.dtype, device=m.device).expand_as(m)], 2)
+    for k in range(2):                                 # the last pivot is its own row
+        p = k + ab[:, k:, k].abs().argmax(1, keepdim=True)    # the first largest, as isamax
+        swap = torch.where(idx == k, p, torch.where(idx == p, k, idx))
+        ab = ab.gather(1, swap[:, :, None].expand(-1, -1, 6))
+        a = ab[:, :, :3]
+        a[:, k + 1:, k] = a[:, k + 1:, k] * (1.0 / a[:, k, k, None])
+        a[:, k + 1:, k + 1:] = a[:, k + 1:, k + 1:] - a[:, k + 1:, k, None] * a[:, k, None, k + 1:]
+    a, b = ab[:, :, :3], ab[:, :, 3:]
+    for i in range(2):
+        b[:, i + 1:] = _fma(-a[:, i + 1:, i, None], b[:, i, None], b[:, i + 1:])
+    for i in reversed(range(3)):
+        b[:, i] = b[:, i] * (1.0 / a[:, i, i])[:, None]
+        if i:
+            b[:, :i] = _fma(-a[:, :i, i, None], b[:, i, None], b[:, :i])
+    return b.contiguous()
+
+
 def _source_coords(m_inv, out_h: int, out_w: int):
-    """[B,H',W'] source x and y of every output pixel through m_inv [B,3,3]."""
+    """[B,H',W'] source x and y of every output pixel through m_inv [B,3,3],
+    summed as the JAX package's einsum("ij,jhw->ihw", m_inv, [gx, gy, 1])
+    sums them on the CPU: m0 gx, then + m1 gy fused, then + m2."""
     dev = m_inv.device
-    gy, gx = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=dev),
-                            torch.arange(out_w, dtype=torch.float32, device=dev),
-                            indexing="ij")
-    sx = (m_inv[:, 0, 0, None, None] * gx + m_inv[:, 0, 1, None, None] * gy
-          + m_inv[:, 0, 2, None, None])
-    sy = (m_inv[:, 1, 0, None, None] * gx + m_inv[:, 1, 1, None, None] * gy
-          + m_inv[:, 1, 2, None, None])
-    return sx, sy
+    gy = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]     # [H', 1]
+    gx = torch.arange(out_w, dtype=torch.float32, device=dev)              # [W']
+    m = m_inv[:, :2, :, None, None]
+    return tuple(_fma(m[:, r, 1], gy, m[:, r, 0] * gx) + m[:, r, 2] for r in (0, 1))
 
 
 def _bilinear(tap, sx, sy):
@@ -289,7 +328,7 @@ def _mosaic(imgs, labels, p: Dict, sel, n: int):
     s = imgs.shape[1]
     sources = torch.cat([sel[:, None], p["donors"][sel]], 1)
     m, xc, yc = p["m"][sel], p["xc"][sel], p["yc"][sel]
-    img = warp_mosaic_bilinear(imgs, sources, torch.linalg.inv(m), xc, yc, s, s)
+    img = warp_mosaic_bilinear(imgs, sources, inv3(m), xc, yc, s, s)
     cls4, xyxy4 = mosaic_labels_canvas(labels, sources, xc, yc, s)
     return img, compact_labels(affine_label_corners(cls4, xyxy4, m, p["s"][sel], s, s), n)
 
@@ -336,7 +375,7 @@ def apply(imgs_u8, labels, p: Dict, rows=None):
             both = compact_labels(torch.cat([labels, mo_lbl[part]], 1), n)
             labels = torch.where(do[:, None, None], both, labels)
     elif "m" in q:
-        imgs = warp_bilinear(imgs, torch.linalg.inv(q["m"]), h, w)
+        imgs = warp_bilinear(imgs, inv3(q["m"]), h, w)
         labels = transform_labels(labels, q["m"], q["s"], h, w)
     if "gains" in q:
         imgs = hsv_jitter(imgs, q["gains"])

@@ -172,9 +172,12 @@ def fake_quant_sym(x, amax, bits: int = 8):
     (blocks.py:182-195): scale = max(amax, 1e-12) / qmax, round half to
     even, clip to [-qmax - 1, qmax], dequantize; amax == 0 passes x through.
     The forward is x + (q - x), one rounding away from q, as in JAX. The
-    divisors are tensors on x's device, so every division is a true one."""
+    divisors are tensors on x's device, so every division is a true one;
+    qmax is filled there, not copied from the host, so a CUDA graph can
+    capture it (the int8 predict's QuantAct)."""
     qmax = 2.0 ** (bits - 1) - 1
-    scale = torch.clamp(amax, min=1e-12) / amax.new_tensor(qmax)
+    scale = torch.clamp(amax, min=1e-12) / torch.full((), qmax, dtype=amax.dtype,
+                                                      device=amax.device)
     q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax) * scale
     q = torch.where(amax > 0, q, x)
     return x + (q - x).detach()

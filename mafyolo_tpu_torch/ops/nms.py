@@ -9,6 +9,8 @@ torch.sort(stable=True) here: equal-score tie order decides NMS survivors.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mafyolo_tpu_torch.models.detect import dfl_decode, flatten_train_outputs
@@ -98,10 +100,32 @@ def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
     head of reg_max 0); agnostic=True suppresses across classes (no class
     offset on the boxes).
 
-    Fast path: threshold compaction, exact while every image has <= compact_k
-    above-threshold pairs and no anchor has more than two. Otherwise the whole
-    batch takes the dense top-pre_nms_topk path (mafyolo_tpu/ops/nms.py:
-    280-284). In eager torch that branch costs one host sync (`.item()`) per
+    The two stages of decode_nms_stages, with the overflow flag read on the
+    host between them: lax.cond(jnp.any(counts > kp), dense, fast) of
+    mafyolo_tpu/ops/nms.py:280-284 as eager launches. core/graphs.py replays
+    the same stages as two CUDA graphs.
+    """
+    dets, overflow, dense = decode_nms_stages(
+        head_outs, strides, reg_max, use_dfl, conf_thres, iou_thres, max_det, pre_nms_topk,
+        compact_k, multi_label, agnostic)
+    return dense() if bool(overflow.item()) else dets
+
+
+def decode_nms_stages(head_outs, strides=(8, 16, 32), reg_max: int = 16,
+                      use_dfl: bool = True, conf_thres: float = 0.03,
+                      iou_thres: float = 0.65, max_det: int = 300,
+                      pre_nms_topk: int = 2000, compact_k: int = 512,
+                      multi_label: bool = True, agnostic: bool = False):
+    """fused_decode_nms's arguments -> (fast detections, overflow, dense):
+    the fast stage's detections dict, a 0-d bool on the head maps' device
+    that is set where the fast stage is not exact, and a function of no
+    arguments that runs the dense stage on the same head maps. Nothing here
+    reads the device: the caller reads overflow and takes dense() in its
+    place where it is set.
+
+    Fast stage: threshold compaction, exact while every image has <=
+    compact_k above-threshold pairs and no anchor has more than two. Dense
+    stage (_dense): the top pre_nms_topk anchors, then pairs, for the whole
     batch.
     """
     hw_list, cls_scores, reg_distri = flatten_train_outputs(head_outs)
@@ -141,7 +165,7 @@ def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
             return boxes
         return boxes + cls_idx[..., None].to(boxes.dtype) * MAX_WH
 
-    # ---- fast path: compaction + top-2 classes of each surviving anchor
+    # ---- fast stage: compaction + top-2 classes of each surviving anchor
     amx = cls_scores.amax(-1)                                     # [B, A]
     aidx, acount = compact_mask_indices(amx > conf_thres, kp)     # [B, kp]
     aslot = torch.arange(kp, device=dev)
@@ -158,9 +182,6 @@ def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
     overflow = torch.maximum(
         torch.where((nabove > 2).any(-1), kp + 1, 0), nabove.sum(-1))
     counts = torch.maximum(acount, overflow)                      # [B]
-    if bool((counts > kp).any().item()):
-        return _dense(cls_scores, reg_distri, conf_thres, iou_thres, max_det,
-                      ma, m, decode_boxes, offset, multi_label)
 
     sc2 = torch.cat([v1, v2], 1)                                  # [B, 2kp]
     neg, order = torch.sort(-sc2, dim=-1, stable=True)
@@ -173,7 +194,9 @@ def fused_decode_nms(head_outs, strides=(8, 16, 32), reg_max: int = 16,
     b, s, c, v = _blocked_greedy_select(
         cand, offset(cand, cls_idx), sc_sorted.float(), cls_idx, iou_thres,
         max_det, block=max(512, kp))
-    return dict(boxes=b, scores=s, classes=c, valid=v)
+    return (dict(boxes=b, scores=s, classes=c, valid=v), (counts > kp).any(),
+            functools.partial(_dense, cls_scores, reg_distri, conf_thres, iou_thres, max_det,
+                              ma, m, decode_boxes, offset, multi_label))
 
 
 def _competing(rows, conf_thres, multi_label):

@@ -296,7 +296,7 @@ def nms(dev):
     folded, _ = sample.random_deploy("maf-yolo-n", dev)
     ev = sample.evaler("maf-yolo-n", folded, True, dev)
     imgs = sample.images(100, BATCH).to(dev)
-    for boxes, valid, thr in sample.capture_nms_inputs(lambda: ev.predict(imgs)):
+    for boxes, valid, thr in sample.capture_nms_inputs(lambda: ev.predict_eager(imgs)):
         rec = nms_split(boxes, valid, thr)
         print(json.dumps({"inputs": "predict maf-yolo-n bs32@640", "batch": boxes.shape[0],
                           "m": boxes.shape[1], **rec}), flush=True)

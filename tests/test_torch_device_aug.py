@@ -6,9 +6,11 @@ port's apply half is held against JAX on the parameters that JAX itself
 draws: `torch_common.jax_aug_params` replays device_augment's key splits
 (one key per sample, split in 9) and hands the matrices, donors,
 centres, gates, partners, beta draws, HSV gains and flips to `apply`.
-Tolerances: the gather warps and everything downstream of them 1e-4 (f32;
-the two packages invert the affine by different routines, and HSV divides
-by small channel spreads), labels 1e-5 and in the same row order; against
+Tolerances: the affine's inverse and source coordinates bit for bit, a
+direct warp 1e-5 against JAX's own warp run alone; apply() against
+device_augment 1e-4 (f32; inside device_augment XLA fuses the warp's
+arithmetic otherwise than the same warp run alone, 7e-6 apart, and HSV
+divides by small channel spreads), labels 1e-5 and in the same row order; against
 the JAX default forms for axis-aligned affines (separable matmuls, the
 mosaic on a bf16 canvas) the JAX tests' own 1e-4 and 2e-2 / 1e-2
 (tests/test_device_aug.py). The rest holds the properties that
@@ -118,6 +120,60 @@ def _m_invs():
         c, s = np.cos(np.radians(a)), np.sin(np.radians(a))
         out.append(np.array([[sx * c, -s + sh, tx], [s, sy * c, ty], [0, 0, 1]], np.float32))
     return out
+
+
+def _drawn_matrices(seed, n, mosaic):
+    """n affine matrices as device_augment draws them: the plain affine of
+    a 64 px image, or the mosaic's of its 128 px canvas onto 64 px."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), n)
+    size = 128 if mosaic else 64
+    return np.asarray(jax.vmap(lambda k: J._affine_matrix(
+        k, size, size, 10.0, 0.2, 0.5, 3.0, out_h=64, out_w=64)[0])(keys))
+
+
+@pytest.mark.parametrize("mosaic", [False, True])
+def test_affine_inverse_and_direct_warp_match_jax(rng, mosaic):
+    """The affine in JAX's order: inv3 equals jnp.linalg.inv (jitted, as
+    device_augment runs it) bit for bit on 2000 drawn matrices, where
+    torch.linalg.inv does not; the source coordinates equal JAX's
+    einsum("ij,jhw->ihw") bit for bit; and the image each package warps
+    from the same drawn matrix, inverting it itself, within 1e-5 (the
+    blend rounds alike to an ulp). Inside device_augment XLA fuses the same
+    warp otherwise (7e-6 from JAX's own warp run alone, measured on the
+    CPU), so apply() is held to device_augment more loosely above."""
+    ms = _drawn_matrices(7 + mosaic, 2000, mosaic)
+    want = np.asarray(jax.jit(jax.vmap(jnp.linalg.inv))(ms))
+    got = D.inv3(_t(ms)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(torch.linalg.inv(_t(ms)).numpy(), want)
+
+    def coords(m_inv):
+        gy, gx = jnp.meshgrid(jnp.arange(64, dtype=jnp.float32),
+                              jnp.arange(64, dtype=jnp.float32), indexing="ij")
+        return jnp.einsum("ij,jhw->ihw", m_inv, jnp.stack([gx, gy, jnp.ones_like(gx)]))
+    src = np.asarray(jax.jit(jax.vmap(coords))(jnp.asarray(want[:64])))
+    sx, sy = D._source_coords(_t(want[:64]), 64, 64)
+    np.testing.assert_array_equal(sx.numpy(), src[:, 0])
+    np.testing.assert_array_equal(sy.numpy(), src[:, 1])
+
+    m = ms[:4]
+    if mosaic:
+        quad = rng.uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+        sources = torch.tensor([[0, 1, 2, 3], [1, 2, 3, 0], [2, 3, 0, 1], [3, 0, 1, 2]])
+        xc, yc = rng.integers(32, 96, 4), rng.integers(32, 96, 4)
+        got = D.warp_mosaic_bilinear(_t(quad), sources, D.inv3(_t(m)), _t(xc).float(),
+                                     _t(yc).float(), 64, 64)
+        warp = jax.jit(jax.vmap(lambda q, mm, x, y: J._warp_mosaic_bilinear(
+            q, jnp.linalg.inv(mm), x, y, 64, 64, 114.0 / 255.0)))
+        want = warp(jnp.asarray(quad[sources.numpy()]), jnp.asarray(m),
+                    jnp.asarray(xc, jnp.float32), jnp.asarray(yc, jnp.float32))
+    else:
+        img = rng.uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+        got = D.warp_bilinear(_t(img), D.inv3(_t(m)), 64, 64)
+        warp = jax.jit(jax.vmap(lambda im, mm: J._warp_bilinear(
+            im, jnp.linalg.inv(mm), 64, 64, 114.0 / 255.0)))
+        want = warp(jnp.asarray(img), jnp.asarray(m))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 def test_warps_match_jax_gather_and_default_forms(rng):

@@ -444,6 +444,22 @@ def test_device_aug_train_step_and_eval_and_save(cuda_device, tmp_path):
     assert (tmp_path / "last_ckpt.npck").exists()
 
 
+def test_device_aug_affine_on_the_card_equals_the_cpu(cuda_device):
+    """The affine's inverse (inv3) and the warp's source coordinates
+    (_source_coords, its f64 sum written straight to f32) on the card equal
+    the CPU's bit for bit on 256 matrices drawn as the train step draws
+    them, at 640x640; the CPU's are JAX's bit for bit
+    (tests/test_torch_device_aug.py)."""
+    from mafyolo_tpu_torch.data import device_aug as DA
+    gen = torch.Generator().manual_seed(11)
+    m = DA.draw(256, 640, 640, gen, degrees=10.0, shear=5.0, mosaic=1.0)["m"]
+    inv_cpu, inv_card = DA.inv3(m), DA.inv3(m.to(cuda_device))
+    assert torch.equal(inv_card.cpu(), inv_cpu)
+    for got, want in zip(DA._source_coords(inv_cpu.to(cuda_device), 640, 640),
+                         DA._source_coords(inv_cpu, 640, 640)):
+        assert torch.equal(got.cpu(), want)
+
+
 def _int8_pack(cin, cout, k, stride, groups, seed, device):
     """A random conv with nonzero biases (U(0.2, 1): a halo pixel that leaked
     into a DW sum would show) packed for the int8 kernels."""
@@ -829,3 +845,165 @@ def test_export_int8_program_on_the_card(cuda_device, tmp_path):
     assert tuple(a - b for a, b in zip(after, before)) == (66, 16, 8)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+# ---- the serving paths as CUDA graphs (core/graphs.py)
+
+
+def _graph_evaler(device, seed=3, half=True):
+    """N (nc 7) on random folded weights whose heads keep two live classes,
+    so that a 2x128x128 batch overflows compact_k at conf 0.03 and not at
+    0.5."""
+    from mafyolo_tpu_torch.core.evaler import Evaler
+    folded = random_folded("maf-yolo-n", 7, seed=seed)
+    for i in (31, 32, 33):
+        pred = folded["params"]["net"][f"layer{i}"]["cls_pred"]
+        pred["kernel"][..., 2:], pred["bias"][2:] = 0.0, -30.0
+    ev = Evaler(img_size=128, half=half, device=device)
+    ev.init_model("maf-yolo-n", folded, 7, folded=True)
+    return ev, folded
+
+
+def _launches():
+    from mafyolo_tpu_torch.core.graphs import COUNTERS
+    return [getattr(fn, attr) for fn, attr in COUNTERS]
+
+
+@pytest.mark.parametrize("half", [True, False])
+def test_predict_graphs_equal_eager(cuda_device, half):
+    """Evaler.predict through its CUDA graphs against predict_eager, bit for
+    bit: a 2x128x128 batch on the fast path (conf 0.5) and one that
+    overflows (conf 0.03: the dense graph replays), a 2x126x94 batch (the
+    model's own layers 0-2, no front-end launch) and multi_label=False;
+    each replayed three times, every launch counter moving as three eager
+    predicts move it, and a replay equal to the last; then each key again,
+    the last captured first (the keys share one pool)."""
+    ev, _ = _graph_evaler(cuda_device, half=half)
+    x = torch.from_numpy(u8_images(5, (2, 128, 128, 3))).to(cuda_device)
+    ragged = torch.from_numpy(u8_images(6, (2, 126, 94, 3)))       # on the host
+    flags, wants = [], []
+    for imgs, conf, ml in ((x, 0.5, True), (x, 0.03, True), (ragged, 0.03, True),
+                           (x, 0.03, False)):
+        ev.conf_thres = conf
+        before = _launches()
+        want = ev.predict_eager(imgs, multi_label=ml)
+        wants.append((imgs, conf, ml, want))
+        torch.cuda.synchronize()
+        eager = [b - a for a, b in zip(before, _launches())]
+        before = _launches()
+        got = [ev.predict(imgs, multi_label=ml) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert [b - a for a, b in zip(before, _launches())] == [3 * n for n in eager]
+        for out in got:
+            for k in want:
+                assert torch.equal(out[k], want[k]), (conf, ml, k)
+        key = (tuple(imgs.shape), torch.uint8, ("conf_thres", conf), ("iou_thres", 0.65),
+               ("max_det", 300), ("multi_label", ml))
+        flags.append(ev.graphs.keys[key].overflowed)
+        assert eager[0] == (0 if imgs.shape[1] == 126 else 1)      # front-end launches
+    assert flags[:2] == [False, True] and len(ev.graphs.keys) == 4
+    first = next(iter(ev.graphs.keys.values()))
+    assert first.pool_bytes > 0 and all(kg.capture_ms > 0 for kg in ev.graphs.keys.values())
+    for imgs, conf, ml, want in reversed(wants):
+        ev.conf_thres = conf
+        got = ev.predict(imgs, multi_label=ml)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (conf, ml, k)
+    assert ev.graphs.captures == 4
+
+
+def test_predict_graphs_hold_max_keys(cuda_device):
+    """MAX_KEYS + 4 keys (one shape, MAX_KEYS + 4 values of conf_thres)
+    through Evaler.predict: every result equals the eager predict's, the
+    cache ends holding the last MAX_KEYS keys, a dropped key captures again
+    at its next call, and the four captures made after the cache is full
+    add less to the memory reserved than the first key's capture did: they
+    take what the dropped keys left in the one pool."""
+    from mafyolo_tpu_torch.core import graphs as GR
+    ev, _ = _graph_evaler(cuda_device)
+    x = torch.from_numpy(u8_images(20, (2, 128, 128, 3))).to(cuda_device)
+    confs = [0.5 + 0.01 * i for i in range(GR.MAX_KEYS + 4)]
+    reserved, pools = [], []
+    for conf in confs:
+        ev.conf_thres = conf
+        got = ev.predict(x)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(cuda_device))
+        pools.append(next(reversed(ev.graphs.keys.values())).pool_bytes)
+        want = ev.predict_eager(x)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (conf, k)
+    assert [dict(key[2:])["conf_thres"] for key in ev.graphs.keys] == confs[-GR.MAX_KEYS:]
+    assert ev.graphs.captures == len(confs)
+    assert reserved[-1] - reserved[GR.MAX_KEYS - 1] < pools[0], (reserved, pools)
+    ev.conf_thres = confs[0]
+    got, want = ev.predict(x), ev.predict_eager(x)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert ev.graphs.captures == len(confs) + 1 and len(ev.graphs.keys) == GR.MAX_KEYS
+
+
+def test_int8_predict_graphs_equal_eager(cuda_device):
+    """int8_predict_fn (N, bf16, bs2@128) through its CUDA graphs against its
+    eager call, bit for bit, three replays, the int8_conv, int8_dw and NMS
+    counters moving as three eager predicts move them (66 and 16 a
+    predict)."""
+    from mafyolo_tpu_torch.core import quant as Q
+    ev, folded = _graph_evaler(cuda_device)
+    imgs = torch.from_numpy(u8_images(7, (2, 128, 128, 3))).to(cuda_device)
+    with torch.no_grad():
+        quant = Q.ptq_calibrate("maf-yolo-n", 7, folded, [imgs], max_batches=1,
+                                device=cuda_device)
+    p8 = Q.int8_predict_fn("maf-yolo-n", 7, folded, quant, device=cuda_device)
+    before = _launches()
+    want = p8.eager(imgs)
+    torch.cuda.synchronize()
+    eager = [b - a for a, b in zip(before, _launches())]
+    assert eager[2] == 66 and eager[4] == 16
+    before = _launches()
+    got = [p8(imgs) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, _launches())] == [3 * n for n in eager]
+    for out in got:
+        for k in want:
+            assert torch.equal(out[k], want[k]), k
+    assert len(p8.graphs.keys) == 1
+
+
+def test_init_model_drops_graphs(cuda_device):
+    """init_model gives the Evaler a new, empty cache (a graph holds the old
+    weights' addresses): the next predict captures again and equals the
+    eager predict on the new weights, not the old graph's result."""
+    from mafyolo_tpu_torch.core.evaler import Evaler
+    ev, _ = _graph_evaler(cuda_device, seed=3)
+    ev.conf_thres = 0.5
+    x = torch.from_numpy(u8_images(8, (2, 128, 128, 3))).to(cuda_device)
+    old = ev.predict(x)
+    graphs = ev.graphs
+    other, folded = _graph_evaler(cuda_device, seed=4)
+    ev.init_model("maf-yolo-n", folded, 7, folded=True)
+    assert ev.graphs is not graphs and not ev.graphs.keys
+    got, want = ev.predict(x), ev.predict_eager(x)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert not torch.equal(got["scores"], old["scores"])
+    assert len(ev.graphs.keys) == 1 and isinstance(other, Evaler)
+
+
+def test_graph_capture_failure_raises(cuda_device):
+    """A stage that reads the device (here .item()) cannot be captured: the
+    call raises, nothing runs eager in the graph's place, and no key is
+    kept."""
+    from mafyolo_tpu_torch.core.graphs import PredictGraphs
+
+    def stages(x, **_):
+        scale = float(x.float().mean().item())
+        return ({"y": x.float() * scale}, torch.zeros((), dtype=torch.bool, device=x.device),
+                lambda: {"y": x.float()})
+
+    graphs = PredictGraphs(stages, cuda_device)
+    before = _launches()
+    with pytest.raises(RuntimeError):
+        graphs(torch.ones((1, 8, 8, 3), dtype=torch.uint8))
+    assert not graphs.keys and _launches() == before
+    torch.cuda.synchronize()

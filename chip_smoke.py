@@ -159,6 +159,15 @@ Phases, in order; any failure exits non-zero without a result line:
                 (--end2end, none and int8) on the card, loaded, run and
                 held to the eager function bit for bit, its launches
                 counted; tools/flops.py's line for N, S and M.
+ 28. remat      per-block rematerialization (remat_phase's docstring lists
+                the gates): N, M and the YOLOv6-L office graph at bs32@640
+                bf16 through make_train_step, without remat, under "full"
+                and under "convs": each mode's steps from one state held to
+                the run without remat (bit-equal where two runs without
+                remat are, else within twice their spread), peak memory,
+                step ms p50 and p90, dw_grad launches a step, the device's
+                busy share; office L's f64 step card against CPU and a
+                Trainer epoch with --remat; the train CLI with --remat.
  graphs         every serving path on the card is one CUDA-graph replay a
                 predict (core/graphs.py): in phases 7, 10, 13, 21, 26 and 27
                 each path (bf16 N, S, M, office N, M, L; int8 N, S, M, office
@@ -1115,12 +1124,14 @@ def main():
     torch.set_grad_enabled(False)
     office = office_phase(dev, card)
     xq = export_quant_phase(dev, card, folded)
+    torch.set_grad_enabled(True)
+    remat = remat_phase(dev, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "frontend", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/frontend.cu",
          "replaces": "mafyolo_tpu/ops/frontend_pallas.py:467",
-         "launches": launches["frontend"] + rec["frontend"],
+         "launches": launches["frontend"] + rec["frontend"] + remat["frontend"],
          "max_abs_err": fe_err["maf-yolo-n"],
          "ms": fe_n["frontend_ms"], "plain_ms": fe_n["frontend_plain_ms"],
          "bound_ms": fe_n["bound_ms"], "bound_by": fe_n["bound_by"],
@@ -1129,14 +1140,15 @@ def main():
         {"name": "greedy_nms", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "mafyolo_tpu/ops/pallas_nms.py:60",
          "launches": launches["greedy_nms"] + rec["greedy_nms"] + office["launches"]["greedy_nms"]
-         + xq["launches"]["greedy_nms"],
+         + xq["launches"]["greedy_nms"] + remat["greedy_nms"],
          "max_abs_err": nms_err,
          "ms": nms_ms[512], "plain_ms": nms_plain_ms[512],
          "bound_ms": nms_bound["bound_ms"], "bound_by": nms_bound["bound_by"],
          "library_ms": None},
         {"name": "dw_grad", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/dw_grad.cu",
          "replaces": "mafyolo_tpu/ops/dw_grad_pallas.py:143 and :47",
-         "launches": train["launches"] + rec["dw_grad"], "max_abs_err": dk_err,
+         "launches": train["launches"] + rec["dw_grad"] + remat["dw_grad"],
+         "max_abs_err": dk_err,
          "ms": train["dk_ms"], "plain_ms": train["dk_plain_ms"],
          "bound_ms": train["dk_bound"]["bound_ms"], "bound_by": train["dk_bound"]["bound_by"],
          "library_ms": train["dk_library_ms"]},
@@ -2116,7 +2128,7 @@ def train_phases(dev):
 
 
 def step_card_vs_cpu(dev, graph, n_sites, phase="train_check", recipe=None, label=None,
-                     dtype=None, gate=True):
+                     dtype=None, gate=True, remat=False):
     """One f32 step of `graph` at bs2@160 on the card (the dw_grad kernel)
     against the CPU (its plain version), from the same random train weights:
     loss components (and Wise-IoU's running mean) within 1e-3, each gradient
@@ -2127,7 +2139,8 @@ def step_card_vs_cpu(dev, graph, n_sites, phase="train_check", recipe=None, labe
     either way). recipe (recipes_phase's RECIPES entry) gives the step's
     loss and its inputs: the plain graph re-initialized and masked by
     repopt_prepare from the same scales, or a teacher from other random
-    weights, on both sides alike."""
+    weights, on both sides alike. remat builds both models with per-block
+    rematerialization (policy "full")."""
     import numpy as np
     import torch
 
@@ -2145,7 +2158,7 @@ def step_card_vs_cpu(dev, graph, n_sites, phase="train_check", recipe=None, labe
     imgs, targets = train_batch(7, 2, 160, dev)
     grads, comps, bn = {}, {}, {}
     for key, where in (("card", dev), ("cpu", "cpu")):
-        m = build_model(graph, nc=NC, plain_rep=plain)
+        m = build_model(graph, nc=NC, plain_rep=plain, remat=remat)
         m.load_state_dict(train_variables_to_state_dict(variables))
         kw = {k: recipe[k] for k in ("loss_type", "iou_type") if k in recipe}
         if plain:
@@ -2176,6 +2189,7 @@ def step_card_vs_cpu(dev, graph, n_sites, phase="train_check", recipe=None, labe
     emit(phase=phase, model=label or (graph if isinstance(graph, str)
                                       else "maf-yolo-n (Head_simota)"),
          recipe={k: v for k, v in recipe.items() if k != "graph"}, batch=2, img=160,
+         remat=remat,
          gated=gate, dtype=str(dtype or torch.float32).replace("torch.", ""),
          loss_cpu=comps["cpu"], loss_card=comps["card"], loss_rel_err=l_err,
          grad_leaves=len(g_err), grad_max_rel_err=max(g_err.values()), grad_worst=worst,
@@ -3844,6 +3858,259 @@ def export_quant_phase(dev, card, folded_n):
                           "quantization or epilogue; the unfold not timed); cuDNN's bf16 "
                           "conv of the sites in export_quant_int8's classes"}
     return {"launches": total, "records": records, "kernel3x3": kernel3x3}
+
+
+# remat: per-block rematerialization at bs32@640 bf16. Each graph's steps
+# REMAT_PLAN, (epoch, step, use_atss) on the Trainer's schedule at bs 32
+# (accumulate 2: an odd step applies), run from one state under each mode,
+# then REMAT_TIMED steady steps a mode.
+REMAT_GRAPHS = ("maf-yolo-n", "maf-yolo-m", "yolov6l-office")
+REMAT_PLAN = ((2, 0, True), (2, 1, True), (3, 0, False), (3, 1, False))
+REMAT_TIMED = 4
+REMAT_IMAGES = 40           # office L's Trainer epoch: batches of 32 and 8
+
+
+def remat_phase(dev, card):
+    """Phase 28: per-block rematerialization (models/graph.py:GraphNet remat,
+    policies "full" and "convs") at full width. For MAF-YOLO-N, -M and the
+    YOLOv6-L office graph at bs32@640 in bf16 through make_train_step on
+    REMAT_PLAN, from one state (the seeded init): two runs without remat
+    (their largest leaf error is the card's run-to-run spread), one under
+    "full" and one under "convs", each held to the first by
+    utils/sample.py:state_gate over params, BN running statistics,
+    momentum, EMA and wiou_mean (bit-equal where the two runs without remat
+    are, else within twice their spread). Then per mode REMAT_TIMED steady
+    steps by CUDA events (p50, p90), the peak memory of the mode's runs
+    (reset before each mode), the dw_grad launches a step (one a DW site in
+    every mode: the recompute builds no backward of its own) and the
+    device's busy share over one profiled apply step. A mode that does not
+    fit in the card's memory says so with the OOM's request. Office L also:
+    an f64 step at bs2@160 under remat, card against CPU; one Trainer epoch
+    with --remat --device-aug on REMAT_IMAGES images held in memory,
+    evaluated (L runs its own layers 0-1: no front-end launch; the NMS
+    kernel) and checkpointed. Last, the train CLI with --remat for an epoch
+    of 2 steps of N at bs8@320: its checkpointed block calls counted (every
+    block row, every step) and its dw_grad launches. -> the phase's
+    launches by kernel."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mafyolo_tpu_torch.core.engine import Schedule, Trainer
+    from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.models import graph as GR
+    from mafyolo_tpu_torch.models.office import office_config_graph
+    from mafyolo_tpu_torch.ops import dw_grad as DG
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.tools import train as train_cli
+    from mafyolo_tpu_torch.utils.checkpoint import load_checkpoint
+    from mafyolo_tpu_torch.utils.config import Config
+    from mafyolo_tpu_torch.utils.sample import (ArrayDataset, dw_sites, eval_set, state_gate,
+                                                train_set, train_state_leaves)
+    cl = torch.channels_last
+
+    DG.dw_grad.launches = FE.frontend_forward.launches = G.greedy_nms.launches = 0
+    cfg = Config.fromfile(os.path.join(HERE, "configs", "maf_yolo_n.py"))
+    sched = Schedule(cfg.solver, BATCH, 300, STEPS_PER_EPOCH)
+    check(sched.lrs(0, 2)["accumulate"] == 2, "remat: the bs32 schedule does not accumulate 2")
+    plan = [(sched.lrs(i, ep), i % 2 == 1, atss) for ep, i, atss in REMAT_PLAN]
+
+    for name in REMAT_GRAPHS:
+        graph = office_config_graph(name) if name.endswith("-office") else name
+        torch.manual_seed(0)
+        model = build_model(graph, nc=NC).to(dev).to(memory_format=cl)
+        n_sites = len(dw_sites(model, IMG, dev))
+        sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+        step = make_train_step(num_classes=NC, img_size=IMG, dtype=torch.bfloat16)
+        batches = [train_batch(900 + i, BATCH, IMG, dev) for i in range(len(plan))]
+
+        def run(state, idx, events=None):
+            for i in idx:
+                lrs, do_apply, use_atss = plan[i % len(plan)]
+                im, tg = batches[i % len(batches)]
+                if events is not None:
+                    events.append(torch.cuda.Event(enable_timing=True))
+                    events[-1].record()
+                step(state, im, tg, lrs["lr_bnw"], lrs["lr_weight"], lrs["lr_bias"],
+                     lrs["momentum"], do_apply, use_atss)
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+
+        leaves, lines = {}, {}
+        for run_name, mode in (("off", "off"), ("off_again", "off"), ("full", "full"),
+                               ("convs", "convs")):
+            timed = run_name != "off_again"
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            if timed:
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated() / 2**30
+            state = None
+            try:
+                model.load_state_dict(sd0)
+                model.zero_grad(set_to_none=True)
+                model.net.set_remat(mode != "off", "full" if mode == "off" else mode)
+                state = init_train_state(model, weight_decay=sched.weight_decay,
+                                         lr0=sched.lr0, momentum=cfg.solver["momentum"])
+                run(state, range(len(plan)))
+                torch.cuda.synchronize()
+                leaves[run_name] = train_state_leaves(state)
+                if timed:
+                    events, before = [], DG.dw_grad.launches
+                    run(state, range(REMAT_TIMED), events)
+                    torch.cuda.synchronize()
+                    per_step = (DG.dw_grad.launches - before) / REMAT_TIMED
+                    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        ev = []
+                        run(state, [1], ev)
+                        torch.cuda.synchronize()
+                    busy_us = device_busy(prof)[0]
+                    prof_ms = ev[0].elapsed_time(ev[1])
+                    lines[mode] = dict(
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, held_gb=held,
+                        step_ms_p50=float(np.percentile(ms, 50)),
+                        step_ms_p90=float(np.percentile(ms, 90)), step_ms=ms,
+                        dw_grad_launches_per_step=per_step, profiled_step_ms=prof_ms,
+                        device_busy_ms=busy_us / 1e3, busy_share=busy_us / 1e3 / prof_ms)
+            except torch.cuda.OutOfMemoryError as e:
+                lines[mode] = {"oom": str(e).split("\n")[0][:300],
+                               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+            del state
+        torch.cuda.empty_cache()
+        gates = {}
+        for mode in ("full", "convs"):
+            if {"off", "off_again", mode} <= leaves.keys():
+                gates[mode] = state_gate(leaves["off"], leaves["off_again"], leaves[mode])
+        for mode in ("off", "full", "convs"):
+            emit(phase="remat", model=name, mode=mode, card=card, dtype="bf16", batch=BATCH,
+                 img=IMG, dw_sites=n_sites,
+                 remat_rows=sum(s.kind in GR._BLOCK_CTORS for s in model.net.specs),
+                 plan=[{"epoch": ep, "step": i, "atss": a} for ep, i, a in REMAT_PLAN],
+                 timed_steps=REMAT_TIMED, **lines.get(mode, {}), gate=gates.get(mode),
+                 note="step ms by CUDA events over steady steps (accumulate-only and apply "
+                      "alternate); peak memory over the mode's runs, held_gb allocated at "
+                      "their start (the model and what earlier phases keep); busy share: "
+                      "the union of the device's spans over one profiled apply step")
+        emit(phase="remat_gate", model=name, card=card, steps=len(plan),
+             spread=(gates.get("full") or gates.get("convs") or {}).get("spread"),
+             err={m: g["err"] for m, g in gates.items()},
+             leaves_equal_off={m: g["leaves_equal_off"] for m, g in gates.items()},
+             note="spread: the largest leaf error between two runs without remat from one "
+                  "state; err: each mode's against the first (utils/sample.py:state_gate)")
+        # without remat office L may not fit; with it every graph must
+        for mode in ("off", "full", "convs"):
+            check("oom" not in lines[mode] or (mode, name) == ("off", "yolov6l-office"),
+                  f"remat {name}: {mode} did not fit: {lines[mode]}")
+        for mode, line in lines.items():
+            if "oom" not in line:
+                check(line["dw_grad_launches_per_step"] == n_sites,
+                      f"remat {name} {mode}: dw_grad {line['dw_grad_launches_per_step']} a "
+                      f"step, {n_sites} DW sites")
+                check(line["device_busy_ms"] > 0, f"remat {name} {mode}: no device activity")
+        for mode, g in gates.items():
+            check(g["ok"], f"remat {name} {mode}: state gate {g}")
+        check(gates or "oom" in lines["off"], f"remat {name}: no gate ran")
+        del model, sd0, step, batches, leaves
+        torch.cuda.empty_cache()
+
+    # office L: the f64 step card against CPU under remat, then a Trainer epoch
+    name = "yolov6l-office"
+    graph = office_config_graph(name)
+    step_card_vs_cpu(dev, graph, 0, phase="remat_office_l_check", label=name,
+                     dtype=torch.float64, remat=True)
+    tmp = tempfile.TemporaryDirectory()
+    data = {"train": train_set(60, REMAT_IMAGES, size=IMG),
+            "val": eval_set(61, [(IMG, IMG)] * 8 + [(IMG * 3 // 4, IMG)] * 8), "nc": NC,
+            "names": [str(c) for c in range(NC)]}
+    eval_batches = -(-len(data["val"]["images"]) // min(2 * BATCH, 64))
+    args = SimpleNamespace(img_size=IMG, batch_size=BATCH, epochs=1, workers=8, seed=0,
+                           save_dir=os.path.join(tmp.name, "l"), device_aug=True,
+                           stop_aug_last_n_epoch=0, eval_interval=1, tensorboard=False,
+                           remat=True)
+    tr = Trainer(args, office_config(name), data, device=dev, dataset_cls=ArrayDataset)
+    net = tr.state.model.net
+    wrapped = net.remat and net.remat_policy == "full" and len(net.remat_rows) > 0
+    before = {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
+              "greedy_nms": G.greedy_nms.launches}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    running = tr.train_one_epoch(0)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mid = {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
+           "greedy_nms": G.greedy_nms.launches}
+    metrics = tr.eval_and_save(0)
+    torch.cuda.synchronize()
+    ev_n = {"frontend": FE.frontend_forward.launches - mid["frontend"],
+            "greedy_nms": G.greedy_nms.launches - mid["greedy_nms"]}
+    ckpt = load_checkpoint(os.path.join(tmp.name, "l", "last_ckpt.npck"))
+    emit(phase="remat_office_l_trainer", model=name, card=card, dtype="bf16", batch=BATCH,
+         img=IMG, images=REMAT_IMAGES, steps=tr.max_stepnum, updates=tr.state.updates,
+         remat_rows=len(net.remat_rows), policy=net.remat_policy, running=running,
+         epoch_s=epoch_s, peak_mem_gb=peak,
+         train_launches={k: mid[k] - before[k] for k in mid}, eval_launches=ev_n,
+         eval=metrics, checkpoint_epoch=ckpt["epoch"],
+         note="epoch_s by the host clock, its first steps building the cuDNN plans")
+    check(wrapped, "remat office L trainer: the block rows are not rematerialized")
+    check(all(np.isfinite(v) for v in running.values()), f"remat office L trainer: {running}")
+    check(mid["dw_grad"] == before["dw_grad"] and mid["frontend"] == before["frontend"],
+          f"remat office L trainer: train launches {mid} from {before}")
+    check(metrics is not None and all(np.isfinite(v) for v in metrics.values()),
+          f"remat office L trainer: eval {metrics}")
+    check(ev_n["frontend"] == 0 and ev_n["greedy_nms"] >= eval_batches,
+          f"remat office L trainer: eval launches {ev_n} over {eval_batches} batches")
+    check(ckpt["epoch"] == 0, "remat office L trainer: no checkpoint of epoch 0")
+    del tr, net, ckpt
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # the train CLI with --remat: two steps of N at bs8@320, one rank here
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "runs")
+    args = train_cli.get_args_parser().parse_args(
+        ["--conf", os.path.join(HERE, "configs", "maf_yolo_n.py"), "--img-size", str(DDP_IMG),
+         "--batch-size", "8", "--epochs", "1", "--workers", "4", "--output-dir", out,
+         "--device-aug", "--stop-aug-last-n-epoch", "0", "--device", dev.type, "--remat"])
+    n_model = build_model("maf-yolo-n", nc=NC).to(dev).to(memory_format=cl)
+    n_sites = len(dw_sites(n_model, DDP_IMG, dev))
+    n_rows = len(build_model("maf-yolo-n", nc=NC, remat=True).net.remat_rows)
+    del n_model
+    calls, checkpoint = [0], GR.ckpt.checkpoint
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return checkpoint(*a, **kw)
+    before = DG.dw_grad.launches
+    GR.ckpt.checkpoint = counted
+    t_cli = time.perf_counter()
+    try:
+        train_cli.main(args, data_dict={"train": train_set(43, 16, size=DDP_IMG), "nc": NC},
+                       dataset_cls=ArrayDataset)
+    finally:
+        GR.ckpt.checkpoint = checkpoint
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t_cli
+    cli_launches = DG.dw_grad.launches - before
+    ckpt = load_checkpoint(os.path.join(out, "exp", "last_ckpt.npck"))
+    finite = all(np.isfinite(v).all() for _, v in _tree_items(ckpt["model"]))
+    emit(phase="remat_cli", batch=8, img=DDP_IMG, steps=2, checkpointed_calls=calls[0],
+         remat_rows=n_rows, dw_grad_launches=cli_launches, wall_s=cli_s,
+         checkpoint_epoch=ckpt["epoch"], checkpoint_finite=finite,
+         note="checkpointed_calls: torch.utils.checkpoint.checkpoint calls in the run")
+    check(calls[0] == 2 * n_rows, f"remat_cli: {calls[0]} checkpointed calls, want 2 x {n_rows}")
+    check(cli_launches == 2 * n_sites, f"remat_cli: dw_grad launches {cli_launches}")
+    check(finite and ckpt["epoch"] == 0, "remat_cli: bad checkpoint")
+    tmp.cleanup()
+    return {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
+            "greedy_nms": G.greedy_nms.launches}
 
 
 if __name__ == "__main__":

@@ -29,7 +29,8 @@ model has build_type other than 'yaml' trains a YOLOv6 office graph
 (EfficientRep or CSPBep, RepPAN, EffiDeHead), which models/office.py:
 office_graph writes from the model section and the config's training_mode
 (engine.py:52-58); its checkpoints carry that graph dict as meta.graph.
-Per-block rematerialization raises.
+--remat builds the model with per-block rematerialization
+(models/graph.py:GraphNet, policy "full"), as JAX's engine.py:72-75 does.
 """
 from __future__ import annotations
 
@@ -119,10 +120,6 @@ class Trainer:
         self.main = ddp.is_main_process()
         os.makedirs(self.save_dir, exist_ok=True)
 
-        if getattr(args, "remat", False):
-            raise NotImplementedError(
-                "per-block rematerialization is not ported: N trains at bs32@640 "
-                "in 12.2 GB of the card's 80")
         # repopt trains the plain (RealVGG) graph under gradient masks
         self.training_mode = cfg.get("training_mode", "repvgg")
         if cfg.model.get("build_type", "yaml") != "yaml":
@@ -138,6 +135,7 @@ class Trainer:
             torch.manual_seed(args.seed)
             model = build_model(self.graph, nc=self.nc, reg_max=head.reg_max,
                                 strides=tuple(head.strides),
+                                remat=bool(getattr(args, "remat", False)),
                                 plain_rep=self.training_mode == "repopt")
 
         hyp = dict(cfg.data_aug)

@@ -26,9 +26,11 @@ convs through ops/quant_conv.py on weights packed by pack_int8).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -51,6 +53,29 @@ DILATED_BRANCHES = {
     5: ((3, 1), (1, 1)),
     3: ((3, 1), (1, 1)),
 }
+
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """True while a rematerialized block's forward runs again inside the
+    backward (models/graph.py). The state a forward updates (BN running
+    statistics, a quantizer's calibration max and histogram) keeps what the
+    first forward wrote, as nn.remat discards the recompute's mutations."""
+    return getattr(_RECOMPUTE, "on", False)
+
+
+@contextlib.contextmanager
+def recompute_context():
+    """Marks the recompute of a rematerialized block (thread-local: the
+    backward may run on autograd's device thread)."""
+    was = recomputing()
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = was
 
 
 def autopad(k: int, dilation: int = 1) -> int:
@@ -80,7 +105,10 @@ class BatchNorm(nn.Module):
     parallel/ddp.py) they are the global batch's, as flax takes them over a
     sharded batch: each channel's sum and sum of squares (f32 at least) are
     summed over the ranks by an all-reduce that autograd sees, and
-    var = E[x^2] - E[x]^2 (flax's own formula), clamped at 0."""
+    var = E[x^2] - E[x]^2 (flax's own formula), clamped at 0.
+
+    The running statistics move once a forward: a rematerialized block's
+    recompute (recomputing()) normalizes alike and leaves them."""
 
     def __init__(self, ch: int, momentum: float = 0.97, eps: float = 1e-3):
         super().__init__()
@@ -102,6 +130,8 @@ class BatchNorm(nn.Module):
         var = torch.ones_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
+        if recomputing():
+            return y
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
             self.running_var.mul_(self.momentum).add_(
@@ -120,6 +150,8 @@ class BatchNorm(nn.Module):
         scale = self.weight * torch.rsqrt(var + self.eps)
         y = (xf - mean[None, :, None, None]) * scale[None, :, None, None] \
             + self.bias[None, :, None, None]
+        if recomputing():
+            return y.to(x.dtype)
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
@@ -214,7 +246,10 @@ class _Quantizer:
 
     @torch.no_grad()
     def _observe(self, x):
-        """Running max of |x| (f32), then the histogram over [0, new max]."""
+        """Running max of |x| (f32), then the histogram over [0, new max];
+        a recompute (recomputing()) counts nothing."""
+        if recomputing():
+            return
         a = x.detach().float().abs()
         self.act_amax.copy_(torch.maximum(self.act_amax, a.max()))
         if hasattr(self, "act_hist"):

@@ -8,17 +8,22 @@ bring (Conv, SimConv, Head_simota) and of the office graphs
 tests/test_torch_graph.py pins the parse equal to the JAX one for N, S, M
 and such a yaml, tests/test_torch_office.py for the office graphs. The
 executor walks the layers in order and keeps the outputs that later rows
-read (the `save` set), like the JAX GraphNet.
+read (the `save` set), like the JAX GraphNet, and with remat runs each
+block row under activation checkpointing, as the JAX GraphNet wraps it in
+nn.remat.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from mafyolo_tpu_torch.models import blocks as B
 from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
@@ -180,10 +185,48 @@ _BLOCK_CTORS = {
 }
 
 
+REMAT_POLICIES = ("full", "convs")
+# what remat_policy "convs" keeps: the outputs of the convolutions and
+# matrix products, JAX's conv_general_dilated and dot_general
+# (graph.py:367-375 of the JAX package); the rest of a block (BN,
+# activations, adds) is recomputed
+_SAVED_OPS = [torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+              torch.ops.aten.addmm.default]
+
+
+@contextlib.contextmanager
+def _entered(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
+def _remat_contexts(policy: str):
+    """checkpoint's context_fn: (the first forward's context, the
+    recompute's). The recompute runs under blocks.recompute_context, so it
+    moves no BN running statistics and no calibration counts."""
+    if policy == "full":
+        return contextlib.nullcontext(), B.recompute_context()
+    forward, recompute = ckpt.create_selective_checkpoint_contexts(_SAVED_OPS)
+    return forward, _entered(recompute, B.recompute_context())
+
+
 class GraphNet(nn.Module):
     """Executes a parsed graph on NHWC input; returns, per head level,
     (feat, cls, reg) in NHWC. `deploy` picks the blocks' folded or train form
-    (graph.py:223-306 with remat off, the JAX default).
+    (graph.py:223-306).
+
+    remat (graph.py:286-300 of the JAX package): each block row (a
+    _BLOCK_CTORS kind, heads and office blocks included; not Upsample or
+    Concat) runs under torch.utils.checkpoint, non-reentrant, so its
+    activations are recomputed in the backward instead of kept. remat_policy
+    "full" keeps only the block's input; "convs" keeps the conv and matmul
+    outputs as well (selective checkpointing) and recomputes BN, activations
+    and adds. It acts only where a gradient is taken (train mode, grad
+    enabled); eval, no_grad and calibration run the blocks plainly. The
+    recompute leaves BN running statistics and calibration counts as the
+    first forward wrote them, and runs under that forward's autocast state.
 
     skip_until: the caller ran layers 0..skip_until itself (the fused
     front-end kernel, ops/frontend.py) and passes layer skip_until's output.
@@ -203,10 +246,12 @@ class GraphNet(nn.Module):
 
     def __init__(self, specs, save, out_frm, deploy: bool = False,
                  skip_until: int = -1, skip_stem: bool = False,
-                 quant: bool = False, calibrate: bool = False, plain_rep: bool = False):
+                 quant: bool = False, calibrate: bool = False, plain_rep: bool = False,
+                 remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
         self.skip_until = max(skip_until, 0 if skip_stem else -1)
+        self.set_remat(remat, remat_policy)
         q = dict(quant=quant, calibrate=calibrate) if quant and deploy else {}
         for spec in specs:
             if spec.kind == "Upsample" and q:
@@ -223,9 +268,24 @@ class GraphNet(nn.Module):
                 kw["plain"] = True
             self.add_module(f"layer{spec.idx}", ctor(deploy=deploy, **kw, **q))
 
+    def set_remat(self, remat: bool, policy: str = "full"):
+        """Turn per-block rematerialization on or off, with `policy` "full"
+        or "convs"; `remat_rows` is the set of rows it wraps."""
+        if policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {policy!r}: use one of {REMAT_POLICIES}")
+        if policy == "convs" and not hasattr(ckpt, "create_selective_checkpoint_contexts"):
+            raise RuntimeError(
+                "remat_policy 'convs' needs torch.utils.checkpoint."
+                f"create_selective_checkpoint_contexts, which torch {torch.__version__} lacks")
+        self.remat, self.remat_policy = bool(remat), policy
+        self.remat_rows = frozenset(s.idx for s in self.specs
+                                    if remat and s.kind in _BLOCK_CTORS)
+        self._contexts = functools.partial(_remat_contexts, policy)
+
     def forward(self, x, skip_until: Optional[int] = None):
         if skip_until is None:
             skip_until = self.skip_until
+        remat = self.training and torch.is_grad_enabled()
         x = x.permute(0, 3, 1, 2)   # NHWC -> NCHW view, channels_last strides
         y: Dict[int, Any] = {}
         for spec in self.specs:
@@ -243,6 +303,11 @@ class GraphNet(nn.Module):
                 x = up(inp[0]) if up is not None else B.upsample2x(inp[0])
             elif spec.kind == "Concat":
                 x = torch.cat(inp, 1)
+            elif remat and spec.idx in self.remat_rows:
+                # the blocks draw no random numbers: no RNG state to replay
+                x = ckpt.checkpoint(getattr(self, f"layer{spec.idx}"), inp[0],
+                                    use_reentrant=False, context_fn=self._contexts,
+                                    preserve_rng_state=False)
             else:
                 x = getattr(self, f"layer{spec.idx}")(inp[0])
             if spec.idx in self.save:
@@ -256,13 +321,15 @@ class MAFYolo(nn.Module):
     def __init__(self, specs, save, out_frm, nc: int = 80, reg_max: int = 16,
                  strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
                  skip_until: int = -1, skip_stem: bool = False,
-                 quant: bool = False, calibrate: bool = False, plain_rep: bool = False):
+                 quant: bool = False, calibrate: bool = False, plain_rep: bool = False,
+                 remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         self.specs, self.save, self.out_frm = specs, save, out_frm
         self.nc, self.reg_max, self.strides = nc, reg_max, strides
         self.net = GraphNet(specs, save, out_frm, deploy=deploy,
                             skip_until=skip_until, skip_stem=skip_stem,
-                            quant=quant, calibrate=calibrate, plain_rep=plain_rep)
+                            quant=quant, calibrate=calibrate, plain_rep=plain_rep,
+                            remat=remat, remat_policy=remat_policy)
 
     def forward(self, x, skip_until: Optional[int] = None):
         return self.net(x, skip_until)
@@ -272,14 +339,17 @@ def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: int = 16,
                 strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
                 skip_until: int = -1, skip_stem: bool = False,
                 quant: bool = False, calibrate: bool = False,
-                plain_rep: bool = False) -> MAFYolo:
+                plain_rep: bool = False, remat: bool = False,
+                remat_policy: str = "full") -> MAFYolo:
     """Build a MAFYolo (train form, or deploy form with deploy=True) from a
     zoo name, a graph dict or a reference-format yaml path; plain_rep=True
     builds the train form's RepVGG blocks plain (repopt). quant=True (deploy only) adds the INT8
     quantizers, in fake-quant mode or, with calibrate, in calib mode (the
     JAX build_model's quant/calibrate); models/blocks.set_quant_mode
     switches them later. A quant graph runs all its layers: the front-end
-    and stem kernels are for the float graph."""
+    and stem kernels are for the float graph. remat and remat_policy
+    ("full" or "convs") rematerialize each block row in the backward
+    (GraphNet), with the JAX build_model's defaults."""
     if isinstance(graph, str):
         if graph.lower() in MODEL_ZOO:
             graph = MODEL_ZOO[graph.lower()]
@@ -294,4 +364,4 @@ def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: int = 16,
     return MAFYolo(specs, save, out_frm, nc=nc, reg_max=reg_max,
                    strides=strides, deploy=deploy, skip_until=skip_until,
                    skip_stem=skip_stem, quant=quant, calibrate=calibrate,
-                   plain_rep=plain_rep)
+                   plain_rep=plain_rep, remat=remat, remat_policy=remat_policy)

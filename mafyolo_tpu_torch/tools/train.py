@@ -44,7 +44,9 @@ def get_args_parser():
     p.add_argument("--epochs", type=int, default=300)
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--remat", action="store_true",
-                   help="per-block rematerialization (not ported; raises)")
+                   help="per-block rematerialization: each block's activations are "
+                        "recomputed in the backward instead of kept (less memory, "
+                        "more time a step); off by default")
     p.add_argument("--loader-processes", action="store_true",
                    help="decode/augment in a process pool")
     p.add_argument("--output-dir", default="./runs/train")
@@ -147,6 +149,8 @@ def _run(rank, args, device, data_dict=None, dataset_cls=None):
 
     device = torch.device(device)
     if device.type == "cuda":
+        if device.index is None:              # --device cuda: the current card
+            device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
     cfg = Config.fromfile(args.conf_file)
     record = data_dict is None

@@ -296,6 +296,48 @@ def int8_quant_every_bf16(dev):
     return checked, differ
 
 
+def train_state_leaves(state):
+    """Every leaf a train step moves, as CPU copies by name: the model's
+    state dict (params and BN running statistics), the EMA's, the momentum
+    buffers by parameter name and Wise-IoU's running mean."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    leaves = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    leaves.update({f"ema/{k}": v for k, v in state.ema.state_dict().items()})
+    leaves.update({f"momentum/{names[id(p)]}": s["momentum_buffer"]
+                   for p, s in state.optimizer.state.items()})
+    leaves["wiou_mean"] = state.wiou_mean
+    return {k: v.detach().cpu().clone() for k, v in leaves.items()}
+
+
+def state_gate(ref, again, got, floor=1e-2):
+    """The rematerialization gate over train_state_leaves: `ref` and `again`
+    are two runs of the same steps from one state without remat (the card's
+    run-to-run spread: cuDNN's backward may sum with atomics), `got` the
+    run under remat. A leaf bit-equal in ref and again must be bit-equal in
+    got; any other may sit off ref by at most twice the spread. A leaf's
+    error is max|x - ref| / max(max|ref|, floor * the largest max|ref|).
+    -> {"ok", "spread" (the largest error of again), "err" (of got), "worst"
+    (got's three largest), "leaves", "leaves_equal_off" (bit-equal in ref
+    and again), "leaves_equal_off_differing" (of those, not equal in got)}."""
+    if not (ref.keys() == again.keys() == got.keys()):
+        return {"ok": False, "keys_differ": sorted(set(ref) ^ set(got) | set(ref) ^ set(again))}
+    top = max(v.float().abs().max().item() for v in ref.values() if v.numel())
+
+    def errs(run):
+        return {k: (run[k].float() - v.float()).abs().max().item()
+                / max(v.float().abs().max().item(), floor * top)
+                for k, v in ref.items() if v.numel()}
+    spread, err = errs(again), errs(got)
+    equal = [k for k in ref if torch.equal(ref[k], again[k])]
+    differing = [k for k in equal if not torch.equal(ref[k], got[k])]
+    worst_spread = max(spread.values())
+    ok = not differing and all(e <= 2 * worst_spread for k, e in err.items()
+                               if k not in equal)
+    return {"ok": ok, "spread": worst_spread, "err": max(err.values()),
+            "worst": sorted(err.items(), key=lambda kv: -kv[1])[:3], "leaves": len(ref),
+            "leaves_equal_off": len(equal), "leaves_equal_off_differing": len(differing)}
+
+
 def in_turn(fn, sets):
     """A call without arguments that runs fn(*sets[i]) for i = 0, 1, ... in turn."""
     state = {"i": 0}

@@ -1007,3 +1007,37 @@ def test_graph_capture_failure_raises(cuda_device):
         graphs(torch.ones((1, 8, 8, 3), dtype=torch.uint8))
     assert not graphs.keys and _launches() == before
     torch.cuda.synchronize()
+
+
+def test_remat_steps_on_the_card(cuda_device):
+    """MAF-YOLO-N at bs4@256 in bf16 from one state: three steps
+    (accumulate-only with ATSS, apply with ATSS, apply with TAL) twice
+    without remat, then under "full" and "convs", each held to the first by
+    utils/sample.py:state_gate as the smoke's remat phase holds them; the
+    dw_grad kernel launched once a DW site a step in every mode."""
+    from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.utils.sample import (dw_sites, state_gate, train_batch,
+                                                train_state_leaves)
+    torch.manual_seed(0)
+    model = build_model("maf-yolo-n", nc=80).to(cuda_device).to(memory_format=torch.channels_last)
+    n_sites = len(dw_sites(model, 256, cuda_device))
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    step = make_train_step(num_classes=80, img_size=256, dtype=torch.bfloat16)
+    batch = train_batch(5, 4, 256, cuda_device)
+    plan = ((False, True), (True, True), (True, False))
+    leaves, launches = {}, {}
+    for run, mode in (("off", "off"), ("again", "off"), ("full", "full"), ("convs", "convs")):
+        model.load_state_dict(sd0)
+        model.net.set_remat(mode != "off", "full" if mode == "off" else mode)
+        state = init_train_state(model, weight_decay=5e-4)
+        before = DG.dw_grad.launches
+        for do_apply, use_atss in plan:
+            step(state, *batch, 0.01, 0.01, 0.01, 0.9, do_apply, use_atss)
+        torch.cuda.synchronize()
+        launches[run] = DG.dw_grad.launches - before
+        leaves[run] = train_state_leaves(state)
+    assert set(launches.values()) == {n_sites * len(plan)}, launches
+    for mode in ("full", "convs"):
+        gate = state_gate(leaves["off"], leaves["again"], leaves[mode])
+        assert gate["ok"], (mode, gate)

@@ -121,3 +121,37 @@ def test_train_cli_matches_jax_cli(runs):
         scale = max(np.abs(w).max(), 1e-2 * top)
         np.testing.assert_allclose(got[k].astype(np.float32), w, rtol=0, atol=5e-3 * scale,
                                    err_msg=k)
+
+
+def test_cli_on_the_card_takes_an_indexed_device(monkeypatch, tmp_path):
+    """--device cuda (the default) without --device-count runs its one rank
+    in this process on the current card: torch.cuda.set_device refuses a
+    device without an index, so the run names cuda:<current>, and the
+    Trainer gets that device (a stand-in here: no card)."""
+    import torch
+
+    from mafyolo_tpu_torch.core import engine
+
+    seen = {}
+
+    def set_device(device):
+        if torch.device(device).index is None:
+            raise ValueError(f"Expected a torch.device with a specified index, got {device}")
+        seen["set"] = torch.device(device)
+
+    class Stub:
+        def __init__(self, args, cfg, data_dict, *, device, dataset_cls):
+            seen["trainer"] = device
+
+        def train(self):
+            return "trained"
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_device", set_device)
+    monkeypatch.setattr(engine, "Trainer", Stub)
+    args = port_cli.get_args_parser().parse_args(
+        ["--conf", str(ROOT / "configs" / "maf_yolo_n.py"), "--output-dir",
+         str(tmp_path), "--remat"])
+    assert args.device == "cuda" and args.remat
+    assert port_cli.main(args, data_dict={"nc": NC}) == "trained"
+    assert seen == {"set": torch.device("cuda", 0), "trainer": torch.device("cuda", 0)}

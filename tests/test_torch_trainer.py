@@ -248,15 +248,22 @@ def test_checkpoint_helpers_match_jax(run, tmp_path):
         jax_ckpt.find_latest_checkpoint(str(run.root))
 
 
-def test_unported_options_raise(run):
-    """Only per-block rematerialization raises NotImplementedError; the
-    office graphs (build_type 'office', tests/test_torch_office_train.py),
+def test_remat_wraps_block_rows_and_recipes_need_their_inputs(run):
+    """--remat builds the model with every block row rematerialized (policy
+    "full", JAX's default; models/graph.py:GraphNet), and without it none;
+    the office graphs (build_type 'office', tests/test_torch_office_train.py),
     SimOTA, distillation and repopt are ported, and without their inputs (a
     teacher checkpoint, cfg.model.scales) the last two fail as JAX's
     Trainer does."""
+    from mafyolo_tpu_torch.models.graph import _BLOCK_CTORS
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="rematerialization"):
-        Trainer(_args(save_dir=str(run.root / "x"), remat=True), cfg, run.data, device="cpu")
+    tr = Trainer(_args(save_dir=str(run.root / "x"), remat=True), cfg, run.data, device="cpu")
+    net = tr.state.model.net
+    rows = {s.idx for s in net.specs if s.kind in _BLOCK_CTORS}
+    assert net.remat and net.remat_policy == "full" and net.remat_rows == rows
+    assert len(rows) == len(net.specs) - 1          # TINY_GRAPH: every row but Out
+    assert not Trainer(_args(save_dir=str(run.root / "x")), cfg, run.data,
+                       device="cpu").state.model.net.remat_rows
     _, cfg = _configs()
     cfg.training_mode = "repopt"
     with pytest.raises(ValueError, match="cfg.model.scales"):

@@ -123,3 +123,68 @@ def jax_aug_params(key, b, h, w, *, degrees=0.0, translate=0.1, scale=0.5, shear
             p[k] = p[k].long()
     p["dy_label"] = dy_label
     return p
+
+
+def _train_snapshot(model, state):
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {"model": {k: v.clone() for k, v in model.state_dict().items()},
+            "ema": {k: v.clone() for k, v in state.ema.state_dict().items()},
+            "mom": {names[id(p)]: st["momentum_buffer"].clone()
+                    for p, st in state.optimizer.state.items()},
+            "wiou_mean": state.wiou_mean.clone(), "updates": state.updates}
+
+
+def train_steps(graph, variables, imgs, targets, plan, *, nc: int, dtype=torch.float32,
+                remat=None, weight_decay: float = 5e-4, **step_kw):
+    """The port's train steps of `plan`, each ((lr_bnw, lr_w, lr_b, momentum),
+    do_apply, use_atss), from the train tree `variables` on numpy uint8
+    images and targets, remat None (off) or a policy; a grad_mask in
+    step_kw builds the plain (repopt) graph. -> after each step: (a
+    snapshot of model, EMA and momentum state dicts, wiou_mean and updates;
+    the metrics; each BN running buffer's version count moved by the step,
+    2 for one update)."""
+    from mafyolo_tpu_torch.core.train_state import init_train_state, make_train_step
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.utils.bridge import train_variables_to_state_dict
+    model = build_model(graph, nc=nc, remat=remat is not None, remat_policy=remat or "full",
+                        plain_rep="grad_mask" in step_kw)
+    model.load_state_dict(train_variables_to_state_dict(variables))
+    model.to(dtype)
+    state = init_train_state(model, weight_decay=weight_decay)
+    step = make_train_step(num_classes=nc, img_size=imgs.shape[1], **step_kw)
+    stats = {k: b for k, b in model.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    out = []
+    for lrs, do_apply, use_atss in plan:
+        before = {k: b._version for k, b in stats.items()}
+        met = step(state, torch.from_numpy(imgs), torch.from_numpy(targets), *lrs, do_apply,
+                   use_atss)
+        out.append((_train_snapshot(model, state), {k: float(v) for k, v in met.items()},
+                    {k: b._version - before[k] for k, b in stats.items()}))
+    return out
+
+
+def remat_rank(rank, world, init_method, out_file, graph, variables, imgs, targets, plan,
+               nc, policies):
+    """One gloo rank of tests/test_torch_remat.py (module level, so a spawned
+    rank imports this light module and not the test's): rows rank::world of
+    the batch, f64, train_steps under each of `policies` -> a pickle of
+    {policy: [(state dicts as numpy, metrics, versions)]} at out_file % rank."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from mafyolo_tpu_torch.parallel import ddp
+    torch.set_num_threads(1)
+    ddp.init_distributed("cpu", init_method=init_method, rank=rank, world=world)
+    try:
+        out = {policy: [({t: {k: v.numpy() for k, v in s[t].items()}
+                          for t in ("model", "ema", "mom")}, met, ver)
+                        for s, met, ver in train_steps(
+                            graph, variables, imgs[rank::world], targets[rank::world], plan,
+                            nc=nc, dtype=torch.float64, remat=policy)]
+               for policy in policies}
+    finally:
+        dist.destroy_process_group()
+    with open(out_file % rank, "wb") as f:
+        pickle.dump(out, f)

@@ -89,6 +89,51 @@ def train_set(seed, n, size=IMG, nc=NC):
     return eval_set(seed, [(size, size)] * n, nc=nc)
 
 
+# The learnable set's classes, one BGR colour each (tests/helpers.py:COLORS)
+SYNTH_COLORS = ((40, 40, 220), (40, 220, 40), (220, 40, 40))
+# h / w of its val images, at long side IMG: square, 4:3 and 16:9 either way up
+SYNTH_VAL_RATIOS = (1.0, 0.75, 4 / 3, 9 / 16, 16 / 9)
+
+
+def synth_set(seed, sizes, max_objects=4, noise=6):
+    """{"images", "labels"} for ArrayDataset: the learnable synthetic set of
+    tests/helpers.py:make_synth_dataset (the set the JAX package's Trainer
+    tests and its overfit run train on), made in memory. An image of each
+    (h, w) in sizes: a grey 90-130 background, 1..max_objects filled
+    rectangles with sides from 1/8 to 1/3 of the image's, each of a random
+    class of SYNTH_COLORS and labelled with its rectangle (a later one may
+    cover an earlier one, as there), then +-noise a pixel, so that no flat
+    region makes two anchors tie. Drawn with numpy slices (the rectangle
+    covers x1..x1+bw-1), not cv2, and held as arrays with no JPEG round
+    trip: the card's machine has neither cv2 nor an image encoder."""
+    rng = np.random.default_rng(seed)
+    nc = len(SYNTH_COLORS)
+    images, labels = [], []
+    for h, w in sizes:
+        img = rng.integers(90, 130, (h, w, 3)).astype(np.uint8)
+        rows = []
+        for _ in range(int(rng.integers(1, max_objects + 1))):
+            c = int(rng.integers(0, nc))
+            bw, bh = int(rng.integers(w // 8, w // 3)), int(rng.integers(h // 8, h // 3))
+            x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            img[y1:y1 + bh, x1:x1 + bw] = SYNTH_COLORS[c]
+            rows.append([c, (x1 + bw / 2) / w, (y1 + bh / 2) / h, bw / w, bh / h])
+        if noise:
+            img = np.clip(img.astype(np.int16) + rng.integers(-noise, noise + 1, (h, w, 3)),
+                          0, 255).astype(np.uint8)
+        images.append(img)
+        labels.append(np.array(rows, np.float32).reshape(-1, 5))
+    return {"images": images, "labels": labels}
+
+
+def synth_val_sizes(seed, n, size=IMG):
+    """n (h, w) at long side `size`, each of a ratio of SYNTH_VAL_RATIOS drawn
+    from a seed, so that rect batches take several shapes."""
+    pick = np.random.default_rng(seed).integers(0, len(SYNTH_VAL_RATIOS), n)
+    return [(size, round(size / r)) if r >= 1 else (round(size * r), size)
+            for r in np.asarray(SYNTH_VAL_RATIOS)[pick]]
+
+
 def train_batch(seed, b, img, device, max_boxes=120, nc=NC):
     """uint8 BGR images [b,img,img,3] and padded targets [b,max_boxes,5]
     (1-30 boxes per image: cls, cx, cy, w, h normalized; pad rows cls -1),

@@ -37,15 +37,32 @@ graph's counts are read at capture and added again at each replay, the
 dense graph's only when it replays; after any number of calls the counters
 read as after the same eager calls. A capture that fails raises: nothing
 runs eager in a graph's place.
+
+Spans (utils/trace.py). A call is the root span `predict`, with the
+children `copy_in`, `replay_fast`, `replay_dense` (where the flag is set)
+and `clone_out`; these record while a torch profiler records. A new key's
+`capture`, with `capture.warmup` and `capture.graphs` under it, records
+always; `warmup_ms` and `capture_ms` are those two spans' durations. On
+the card, `copy_in`, `replay_fast`, `replay_dense` and `clone_out` mark
+their device start and end, so that a call lies on the device's clock as
+consecutive intervals: the copy, from its end to the fast replay's launch
+(the host's return from the copy), the fast graph with its launch, from
+its end to the next device op (the host's flag read), the dense graph, the
+clones, and from the last clone to the next call's copy (the caller's own
+time). The graphs hold no mark of their own, so the fast graph's interval
+holds its launch's latency: an event-record node at the graph's head would
+cost every replay a node, and under the profiler it runs ahead of the
+kernels, whose launch the profiler delays (some 1 ms for the int8 graph on
+an H100).
 """
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 
 import torch
 
 from mafyolo_tpu_torch.ops import frontend, greedy_nms, quant_conv
+from mafyolo_tpu_torch.utils import trace
 
 # (function, attribute) of every launch counter on the serving paths
 COUNTERS = ((frontend.frontend_forward, "launches"), (greedy_nms.greedy_nms, "launches"),
@@ -80,50 +97,72 @@ def _capture(fn, pool, stream):
 class _KeyGraphs:
     """The fast and dense graphs of one key, their static input and outputs,
     their launch counts, and what capturing them cost: warm-up and capture
-    ms, and the bytes the pool grew by. The warm-up runs where the captures
-    do, on the side stream and in the pool, so that they take the memory it
-    leaves free (the allocator reuses a block on its own stream only)."""
+    ms (the `capture.*` spans' durations), and the bytes the pool grew by.
+    The warm-up runs where the captures do, on the side stream and in the
+    pool, so that they take the memory it leaves free (the allocator reuses
+    a block on its own stream only)."""
 
     def __init__(self, stages, shape, dtype, static, device, side, pool):
         self.x = torch.empty(shape, dtype=dtype, device=device)     # any bytes will do
+        self.card = device if device.type == "cuda" else None      # where spans mark
         start = _counts()
         try:
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(device)
-            t0 = time.perf_counter()
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side), torch.cuda.use_mem_pool(pool):
-                stages(self.x, **static)[2]()
-            torch.cuda.current_stream(device).wait_stream(side)
-            _set_counts(start)
-            t1 = time.perf_counter()
-            self.fast, (self.dets, self.overflow, self.dense_stage) = _capture(
-                lambda: stages(self.x, **static), pool, side)
-            mid = _counts()
-            # the dense stage reads the head maps that the fast graph leaves in
-            # the pool; dense_stage keeps them
-            self.dense, self.dense_dets = _capture(self.dense_stage, pool, side)
-            end = _counts()
+            with trace.span("capture.warmup") as warm:
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side), torch.cuda.use_mem_pool(pool):
+                    stages(self.x, **static)[2]()
+                torch.cuda.current_stream(device).wait_stream(side)
+                _set_counts(start)
+            with trace.span("capture.graphs") as graphs:
+                self.fast, (self.dets, self.overflow, self.dense_stage) = _capture(
+                    lambda: stages(self.x, **static), pool, side)
+                mid = _counts()
+                # the dense stage reads the head maps that the fast graph leaves
+                # in the pool; dense_stage keeps them
+                self.dense, self.dense_dets = _capture(self.dense_stage, pool, side)
+                end = _counts()
         finally:
             _set_counts(start)
         self.fast_counts = [b - a for a, b in zip(start, mid)]
         self.dense_counts = [b - a for a, b in zip(mid, end)]
-        self.warmup_ms = (t1 - t0) * 1e3
-        self.capture_ms = (time.perf_counter() - t1) * 1e3
+        self.warmup_ms, self.capture_ms = warm.seconds * 1e3, graphs.seconds * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
 
     def run(self, imgs_u8):
-        self.x.copy_(imgs_u8)
-        self.fast.replay()
+        """One call: the spans copy_in, replay_fast, replay_dense (where the
+        flag is set) and clone_out, with device marks on the card (while a
+        profiler records). A host batch's copy is issued without waiting and
+        then waited for, as a blocking copy is, so that its end is marked on
+        the device and not where the host came back."""
+        dev = self.card
+        with trace.hot("copy_in", dev) as s:
+            s.start()
+            self.x.copy_(imgs_u8, non_blocking=True)
+            s.end()
+            if dev is not None and imgs_u8.device.type == "cpu":
+                torch.cuda.current_stream(dev).synchronize()
+        with trace.hot("replay_fast", dev) as s:
+            s.start()
+            self.fast.replay()
+            s.end()
         _add_counts(self.fast_counts)
         out = self.dets
         self.overflowed = bool(self.overflow.item())     # as read at this call
         if self.overflowed:
-            self.dense.replay()
+            with trace.hot("replay_dense", dev) as s:
+                s.start()
+                self.dense.replay()
+                s.end()
             _add_counts(self.dense_counts)
             out = self.dense_dets
-        return {k: v.clone() for k, v in out.items()}
+        with trace.hot("clone_out", dev) as s:
+            s.start()
+            out = {k: v.clone() for k, v in out.items()}
+            s.end()
+        return out
 
 
 class PredictGraphs:
@@ -148,16 +187,18 @@ class PredictGraphs:
         array) -> the detections dict of stages(imgs_u8, **static), read
         after the device work; a host batch is copied straight into the
         static input."""
-        imgs = torch.as_tensor(imgs_u8)
-        key = (tuple(imgs.shape), imgs.dtype, *sorted(static.items()))
-        graphs = self.keys.get(key)
-        if graphs is None:
-            while len(self.keys) >= MAX_KEYS:
-                self.keys.popitem(last=False)
-            with torch.no_grad():
-                graphs = self.keys[key] = _KeyGraphs(self.stages, imgs.shape, imgs.dtype,
-                                                     static, self.device, self.side, self.pool)
-            self.captures += 1
-            self.capture_ms += graphs.warmup_ms + graphs.capture_ms
-        self.keys.move_to_end(key)
-        return graphs.run(imgs)
+        with trace.hot("predict"):
+            imgs = torch.as_tensor(imgs_u8)
+            key = (tuple(imgs.shape), imgs.dtype, *sorted(static.items()))
+            graphs = self.keys.get(key)
+            if graphs is None:
+                while len(self.keys) >= MAX_KEYS:
+                    self.keys.popitem(last=False)
+                with trace.span("capture"), torch.no_grad():
+                    graphs = self.keys[key] = _KeyGraphs(self.stages, imgs.shape, imgs.dtype,
+                                                         static, self.device, self.side,
+                                                         self.pool)
+                self.captures += 1
+                self.capture_ms += graphs.warmup_ms + graphs.capture_ms
+            self.keys.move_to_end(key)
+            return graphs.run(imgs)

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from mafyolo_tpu_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -34,7 +36,9 @@ EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": [], "stem": [], "neck8
                "int8_dw": []}
 
 _LOADED: dict = {}
-BUILD_LOG: dict = {}   # name -> (seconds, nvcc output) of builds run here
+# name -> (seconds, nvcc output) of builds run here: load()'s span seconds,
+# nvcc's own where build() is called alone
+BUILD_LOG: dict = {}
 
 
 def _nvcc() -> str:
@@ -85,12 +89,21 @@ def build(name: str) -> Path:
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Build if needed, load once per process, and declare every entry point.
 
+    The build and load are the set-up span `kernels.load` (utils/trace.py),
+    with the library's name and whether it was built here or found built;
+    a library built here keeps that span's seconds in BUILD_LOG.
+
     signatures maps function name -> argtypes; each such function returns
     its cudaError_t as an int. Every library also exports
     `const char* error_string(int)`."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        before = BUILD_LOG.get(name)
+        with trace.span("kernels.load", library=name) as span:
+            lib = ctypes.CDLL(str(build(name)))
+            span.row["built"] = BUILD_LOG.get(name) is not before
+        if span.row["built"]:
+            BUILD_LOG[name] = (span.seconds, BUILD_LOG[name][1])
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

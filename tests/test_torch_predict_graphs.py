@@ -360,3 +360,47 @@ def test_cache_holds_the_recently_used_keys(stand_in_graphs, monkeypatch):
     assert held == ["a", "ab", "ba", "ac", "cb", "ba"]
     # captures: a, b, c, then b and a again (2 graphs each)
     assert len(stand_in_graphs.made) == 2 * 5
+
+
+def test_cache_spans(stand_in_graphs, monkeypatch):
+    """core/graphs.py's spans (utils/trace.py), the CUDA graphs stood in:
+    a new key's capture records always, with capture.warmup and
+    capture.graphs under it, whose durations are the key's warmup_ms and
+    capture_ms; under a profiler each call is a predict span with copy_in,
+    replay_fast, clone_out and, exactly where the flag was set,
+    replay_dense under it; without one no call records."""
+    from torch.profiler import ProfilerActivity, profile
+    from mafyolo_tpu_torch.utils import trace
+    monkeypatch.setattr(trace, "TABLE", trace.Table())
+    monkeypatch.setattr(trace, "span", trace.TABLE.span)
+    monkeypatch.setattr(trace, "hot", trace.TABLE.hot)
+    ev = _evaler()
+    x = _imgs(1, 2, 128, 128)
+    for conf in (0.5, 0.03):
+        ev.conf_thres = conf
+        ev.predict(x)
+    rows = trace.TABLE.export()["spans"]
+    assert [r["name"] for r in rows] == ["capture.warmup", "capture.graphs", "capture"] * 2
+    for i, kg in enumerate(ev.graphs.keys.values()):
+        warm, graphs, cap = rows[3 * i: 3 * i + 3]
+        assert warm["parent"] == graphs["parent"] == cap["id"] and cap["parent"] is None
+        for row, ms in ((warm, kg.warmup_ms), (graphs, kg.capture_ms)):
+            assert (row["host_ns"][1] - row["host_ns"][0]) / 1e6 == pytest.approx(ms)
+    trace.TABLE.clear()
+    confs, flags = (0.5, 0.03, 0.5, 0.03, 0.03), []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for conf in confs:
+            ev.conf_thres = conf
+            ev.predict(x)
+            flags.append(next(reversed(ev.graphs.keys.values())).overflowed)
+    ev.predict(x)
+    calls = {}
+    for r in trace.TABLE.export()["spans"]:
+        calls.setdefault(r["call"], []).append(r)
+    assert flags == [False, True, False, True, True] and len(calls) == len(confs)
+    for flag, (call, spans) in zip(flags, sorted(calls.items())):
+        root = spans[-1]
+        assert root["name"] == "predict" and root["id"] == call and root["parent"] is None
+        assert [r["name"] for r in spans[:-1]] == \
+            ["copy_in", "replay_fast"] + ["replay_dense"] * flag + ["clone_out"]
+        assert all(r["parent"] == call and "device_ms" not in r for r in spans[:-1])

@@ -69,7 +69,11 @@ Phases, in order; any failure exits non-zero without a result line:
  14. timing_stem  the stem kernel for N, S and M at bs32@640: its gates,
                 then its time (bf16 and f32), its plain version's and the
                 model's own layer 0's, each call on the next of enough
-                copies of the input that none is in L2;
+                copies of the input that none is in L2; then timing_dw:
+                the deploy depthwise kernel at every depthwise site of N,
+                S and M at bs32@640, within one bf16 rounding of its plain
+                version, timed the same way beside cuDNN's conv with its
+                bias and activation, by class (k, side);
  15. train      MAF-YOLO-N train steps at bs32@640 in bf16 through the
                 Trainer's step loop on a COCO epoch's step schedule
                 (accumulate 2: accumulate-only and apply steps alternate;
@@ -705,7 +709,8 @@ COUNTED_KERNELS = {"frontend_forward.launches": ("frontend_kernel<", "frontend_m
                    "greedy_nms.launches": ("nms_scan_kernel",),
                    "int8_conv.launches": ("int8_conv_kernel<", "conv3x3_kernel<"),
                    "int8_conv.launches_3x3": ("conv3x3_kernel<",),
-                   "int8_dw.launches": ("int8_dw_kernel<",)}
+                   "int8_dw.launches": ("int8_dw_kernel<",),
+                   "dw_conv.launches": ("dw_conv_kernel<",)}
 GRAPH_RATES = {}           # path -> graphs_check's times of both routes
 
 
@@ -858,6 +863,7 @@ def main():
     from mafyolo_tpu_torch.models.graph import parse_graph
     from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
     from mafyolo_tpu_torch.ops import _build
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
     from mafyolo_tpu_torch.ops import frontend as FE
     from mafyolo_tpu_torch.ops import greedy_nms as G
     from mafyolo_tpu_torch.ops import neck as N
@@ -887,7 +893,7 @@ def main():
     # ---- 2. build: one nvcc per source, all started together
     from concurrent.futures import ThreadPoolExecutor
     names = ("frontend", "greedy_nms", "dw_grad", "stem", "neck80", "fma_probe", "int8_conv",
-             "int8_dw")
+             "int8_dw", "dw_conv")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(_build.build, names)))
@@ -978,6 +984,7 @@ def main():
 
     FE.frontend_forward.launches = 0
     G.greedy_nms.launches = 0
+    DD.dw_conv.launches = 0
     outs, nms_per_batch = [], []
     for bt in batches:
         before = G.greedy_nms.launches
@@ -988,7 +995,8 @@ def main():
     over = ev.predict(batches[0])
     ev.conf_thres = 0.03
     torch.cuda.synchronize()
-    launches = {"frontend": FE.frontend_forward.launches, "greedy_nms": G.greedy_nms.launches}
+    launches = {"frontend": FE.frontend_forward.launches, "greedy_nms": G.greedy_nms.launches,
+                "dw_conv": DD.dw_conv.launches}
     fast = sum(n == 1 for n in nms_per_batch)
     emit(phase="slice_run", batches=BATCHES + 1, launches=launches,
          fast_path_batches=fast, overflow_nms_launches=launches["greedy_nms"] - nms_before,
@@ -996,6 +1004,7 @@ def main():
                                    .mean().item()),
          overflow_dets_per_image_mean=float(over["valid"].sum(1).float().mean().item()))
     check(launches["frontend"] == BATCHES + 1, f"front-end kernel launches {launches}")
+    check(launches["dw_conv"] == 15 * (BATCHES + 1), f"deploy depthwise launches {launches}")
     check(launches["greedy_nms"] > 0 and fast > 0, f"NMS kernel launches {launches}")
     check(launches["greedy_nms"] - nms_before == 1 + -(-2000 // 256),
           "overflow batch did not take the fast stage's NMS, then the dense path's blocked NMS")
@@ -1117,6 +1126,7 @@ def main():
     stem_t = stem_timing(dev, {"maf-yolo-n": ev.model, "maf-yolo-s": s_res["model"],
                                "maf-yolo-m": m_model})
     stem_s = stem_t["maf-yolo-s"]
+    dw_kernel = dw_timing(dev)
     stem_err = max([stem_err] + [r["max_abs_err_bf16"] for r in stem_t.values()])
     del ev, batches, xs_n, m_model, s_res["model"]
     torch.set_grad_enabled(True)
@@ -1177,6 +1187,8 @@ def main():
                - (xq["launches"]["int8_conv3x3"] if k["name"] == "int8_conv" else 0))
           for k in quant_kernels],
         xq["kernel3x3"],
+        dict(dw_kernel, launches=launches["dw_conv"] + rec["dw_conv"] + remat["dw_conv"]
+             + ov["dw_conv"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -1435,6 +1447,59 @@ def stem_timing(dev, models):
          note="ms, f32_ms, plain_ms (bf16 out) and library_ms: CUDA events around eager "
               "calls on copies of the input taken in turn, none in L2")
     return out
+
+
+def dw_timing(dev):
+    """Phase 14, second part: the deploy depthwise kernel alone at every
+    depthwise site of N's, S's and M's bf16 predict at bs32@640
+    (tools/tune_kernels.py:time_dw_site: random weights, bias and inputs
+    from a seed; cold, the inputs taken in turn, none in L2, from a CUDA
+    graph): each within one
+    bf16 rounding of its plain version's f32 result on the card, its ms
+    beside cuDNN's bf16 conv with the bias and the site's activation
+    (library_ms: what the graph ran before the kernel) and the bound, summed
+    by class (k, side); then the plain version's ms on N's sites. Returns
+    the kernels line's entry: N's 15 sites past the front-end, summed."""
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
+    from mafyolo_tpu_torch.tools.tune_kernels import (DW_GRAPHS, dw_deploy_inputs,
+                                                      time_dw_site)
+    from mafyolo_tpu_torch.utils.sample import deploy_dw_sites
+    from mafyolo_tpu_torch.utils.timing import cuda_ms
+    classes, n_sum, bad = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                "bound_bytes": 0, "bound_flops": 0, "max_abs_err": 0.0}, []
+    for name in DW_GRAPHS:
+        for site, count, front in deploy_dw_sites(name, IMG, dev):
+            x, wt, bias = dw_deploy_inputs(site, BATCH, dev)
+            rec = time_dw_site(x, wt, bias, site[4])
+            if not rec["within_rounding"]:
+                bad.append((name, site))
+            cls = classes.setdefault(f"{name} k{site[3]} {site[1]}px", {
+                "sites": 0, "front_end": front, "ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0})
+            cls["sites"] += count
+            for key, src in (("ms", "cold_ms"), ("library_ms", "library_ms"),
+                             ("bound_ms", "bound_ms")):
+                cls[key] += count * rec[src]
+            if name == "maf-yolo-n" and not front:
+                n_sum["ms"] += count * rec["cold_ms"]
+                n_sum["library_ms"] += count * rec["library_ms"]
+                n_sum["bound_bytes"] += count * rec["bytes"]
+                n_sum["bound_flops"] += count * rec["ops"]
+                n_sum["max_abs_err"] = max(n_sum["max_abs_err"], rec["max_abs_err"])
+                n_sum["plain_ms"] += count * cuda_ms(
+                    lambda: DD.dw_conv_plain(x, wt, bias, site[4]), 3, warmup=1)
+    for cls in classes.values():
+        cls["bound_over_kernel"] = cls["bound_ms"] / cls["ms"]
+    emit(phase="timing_dw", batch=BATCH, img=IMG, classes=classes, n_past_front_end=n_sum,
+         outside_rounding=bad,
+         note="ms (the kernel, bias and activation fused) and library_ms (cuDNN's conv, its "
+              "bias add and the activation): device time of calls on copies of the input taken "
+              "in turn, none in L2, replayed from a CUDA graph; sums over each class's sites")
+    check(not bad, f"dw_conv kernel outside one bf16 rounding at {bad[:4]}")
+    return {"name": "dw_conv", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/dw_conv.cu",
+            "replaces": "none (XLA's conv, mafyolo_tpu/ops/dwconv.py; cuDNN on the card)",
+            "max_abs_err": n_sum["max_abs_err"], "ms": n_sum["ms"], "plain_ms": n_sum["plain_ms"],
+            **bound(n_sum["bound_bytes"], n_sum["bound_flops"], "bf16"),
+            "library_ms": n_sum["library_ms"]}
 
 
 def as_predict(preds, ids):
@@ -3042,6 +3107,7 @@ def recipes_phase(dev, card):
     from mafyolo_tpu_torch.core.evaler import Evaler
     from mafyolo_tpu_torch.models import build_model
     from mafyolo_tpu_torch.models.detect import decode_simota_eval
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
     from mafyolo_tpu_torch.ops import dw_grad as DG
     from mafyolo_tpu_torch.ops import frontend as FE
     from mafyolo_tpu_torch.ops import greedy_nms as G
@@ -3054,11 +3120,11 @@ def recipes_phase(dev, card):
     from mafyolo_tpu_torch.utils.sample import ArrayDataset, dw_sites, eval_set, images, train_set
 
     tmp = tempfile.TemporaryDirectory()
-    total = {"dw_grad": 0, "frontend": 0, "greedy_nms": 0}
+    total = {"dw_grad": 0, "frontend": 0, "greedy_nms": 0, "dw_conv": 0}
 
     def launches():
         return {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
-                "greedy_nms": G.greedy_nms.launches}
+                "greedy_nms": G.greedy_nms.launches, "dw_conv": DD.dw_conv.launches}
 
     def counted(fn):
         """fn() with the launches it makes added to the phase's."""
@@ -3919,6 +3985,7 @@ def remat_phase(dev, card):
     from mafyolo_tpu_torch.models import build_model
     from mafyolo_tpu_torch.models import graph as GR
     from mafyolo_tpu_torch.models.office import office_config_graph
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
     from mafyolo_tpu_torch.ops import dw_grad as DG
     from mafyolo_tpu_torch.ops import frontend as FE
     from mafyolo_tpu_torch.ops import greedy_nms as G
@@ -3930,6 +3997,7 @@ def remat_phase(dev, card):
     cl = torch.channels_last
 
     DG.dw_grad.launches = FE.frontend_forward.launches = G.greedy_nms.launches = 0
+    DD.dw_conv.launches = 0
     cfg = Config.fromfile(os.path.join(HERE, "configs", "maf_yolo_n.py"))
     sched = Schedule(cfg.solver, BATCH, 300, STEPS_PER_EPOCH)
     check(sched.lrs(0, 2)["accumulate"] == 2, "remat: the bs32 schedule does not accumulate 2")
@@ -4125,7 +4193,7 @@ def remat_phase(dev, card):
     check(finite and ckpt["epoch"] == 0, "remat_cli: bad checkpoint")
     tmp.cleanup()
     return {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
-            "greedy_nms": G.greedy_nms.launches}
+            "greedy_nms": G.greedy_nms.launches, "dw_conv": DD.dw_conv.launches}
 
 
 # overfit: MAF-YOLO-N trained to boxes (tools/overfit.py), then served: the

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mafyolo_tpu_torch.ops import dw_deploy
 from mafyolo_tpu_torch.ops import quant_conv as QC
 from mafyolo_tpu_torch.ops.dwconv import dw_conv
 from mafyolo_tpu_torch.parallel import ddp
@@ -347,7 +348,10 @@ def pack_int8(model: nn.Module, device):
 
 class ConvAct(nn.Module):
     """Biased conv + optional activation (the fold target of conv+BN); with
-    quant its conv is a QuantConv2d."""
+    quant its conv is a QuantConv2d. A depthwise conv that
+    ops/dw_deploy.py:takes_kernel admits (stride 1, odd k <= 9, on the card,
+    no autograd) runs as the hand-written kernel with the bias and the
+    activation in its epilogue."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
                  groups: int = 1, act: Optional[str] = None, quant: bool = False,
@@ -364,6 +368,8 @@ class ConvAct(nn.Module):
     def forward(self, x):
         if isinstance(self.conv, QuantConv2d):
             return self.conv(x, act=self.act)
+        if dw_deploy.takes_kernel(self.conv, x):
+            return dw_deploy.dw_conv(x, self.conv.weight, self.conv.bias, self.act)
         return _activate(self.conv(x), self.act)
 
 
@@ -490,14 +496,16 @@ class DilatedReparamBlock(nn.Module):
 
 class UniRepLKNetBlock(nn.Module):
     """Deploy: one biased depthwise kxk conv. Train: DilatedReparamBlock +
-    post_bn (blocks.py:619-641)."""
+    post_bn (blocks.py:619-641). Then `act`, the activation that follows the
+    block in the graph: the deploy conv's ConvAct applies it."""
 
     def __init__(self, ch: int, k: int, deploy: bool = False, quant: bool = False,
-                 calibrate: bool = False):
+                 calibrate: bool = False, act: Optional[str] = None):
         super().__init__()
-        self.deploy = deploy
+        self.deploy, self.act = deploy, act
         if deploy:
-            self.fused = ConvAct(ch, ch, k, groups=ch, quant=quant, calibrate=calibrate)
+            self.fused = ConvAct(ch, ch, k, groups=ch, act=act, quant=quant,
+                                 calibrate=calibrate)
         else:
             self.drb = DilatedReparamBlock(ch, k)
             self.post_bn = BatchNorm(ch)
@@ -505,20 +513,21 @@ class UniRepLKNetBlock(nn.Module):
     def forward(self, x):
         if self.deploy:
             return self.fused(x)
-        return self.post_bn(self.drb(x))
+        return _activate(self.post_bn(self.drb(x)), self.act)
 
 
 class ReparamLargeKernelConv(nn.Module):
     """Large-kernel depthwise conv + a parallel small-kernel branch, then
-    ReLU (blocks.py:644-667). Deploy: relu(one biased DW conv); train:
-    relu(lk_bn(x) + small_bn(x)). models/reparam.py:fold_replk folds it."""
+    ReLU (blocks.py:644-667). Deploy: relu(one biased DW conv), the ReLU
+    its ConvAct's; train: relu(lk_bn(x) + small_bn(x)).
+    models/reparam.py:fold_replk folds it."""
 
     def __init__(self, ch: int, k: int, stride: int = 1, small_k: int = 3,
                  deploy: bool = False, quant: bool = False, calibrate: bool = False):
         super().__init__()
         self.deploy = deploy
         if deploy:
-            self.fused = ConvAct(ch, ch, k, stride, groups=ch, quant=quant,
+            self.fused = ConvAct(ch, ch, k, stride, groups=ch, act="relu", quant=quant,
                                  calibrate=calibrate)
         else:
             self.lk = ConvBN(ch, ch, k, stride, groups=ch)
@@ -526,12 +535,13 @@ class ReparamLargeKernelConv(nn.Module):
 
     def forward(self, x):
         if self.deploy:
-            return F.relu(self.fused(x))
+            return self.fused(x)
         return F.relu(self.lk(x) + self.small(x))
 
 
 class DepthBottleneckUni(nn.Module):
-    """1x1 expand -> depthwise k -> SiLU -> 1x1 project (no residual)."""
+    """1x1 expand -> depthwise k -> SiLU -> 1x1 project (no residual); the
+    SiLU is the depthwise block's `act`."""
 
     def __init__(self, cin: int, cout: int, kersize: int = 5,
                  expansion_depth: float = 1.0, deploy: bool = False,
@@ -541,11 +551,11 @@ class DepthBottleneckUni(nn.Module):
         cv = _convish(deploy, quant, calibrate)
         self.expand = cv(cin, mid, 1, act="silu")
         self.dw = UniRepLKNetBlock(mid, kersize, deploy=deploy, quant=quant,
-                                   calibrate=calibrate)
+                                   calibrate=calibrate, act="silu")
         self.project = cv(mid, cout, 1, act="silu")
 
     def forward(self, x):
-        return self.project(F.silu(self.dw(self.expand(x))))
+        return self.project(self.dw(self.expand(x)))
 
 
 class RepHDW(nn.Module):

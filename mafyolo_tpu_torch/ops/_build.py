@@ -33,7 +33,7 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # instantiations of its tile kernel: its optimization passes run in parallel.
 EXTRA_FLAGS = {"greedy_nms": ["-fmad=false"], "frontend": [], "stem": [], "neck80": [],
                "fma_probe": [], "dw_grad": ["-split-compile=0"], "int8_conv": [],
-               "int8_dw": []}
+               "int8_dw": [], "dw_conv": []}
 
 _LOADED: dict = {}
 # name -> (seconds, nvcc output) of builds run here: load()'s span seconds,

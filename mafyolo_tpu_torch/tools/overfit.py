@@ -67,13 +67,14 @@ def synth_data(img=IMG, n_train=TRAIN_IMAGES, n_val=VAL_IMAGES):
 
 def launch_counts():
     """The launch counters of the kernels a run and its serving paths take."""
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
     from mafyolo_tpu_torch.ops import dw_grad as DG
     from mafyolo_tpu_torch.ops import frontend as FE
     from mafyolo_tpu_torch.ops import greedy_nms as G
     from mafyolo_tpu_torch.ops import quant_conv as QC
     return {"dw_grad": DG.dw_grad.launches, "frontend": FE.frontend_forward.launches,
             "greedy_nms": G.greedy_nms.launches, "int8_conv": QC.int8_conv.launches,
-            "int8_dw": QC.int8_dw.launches}
+            "int8_dw": QC.int8_dw.launches, "dw_conv": DD.dw_conv.launches}
 
 
 def _since(before):

@@ -8,6 +8,7 @@
     python -m mafyolo_tpu_torch.tools.tune_kernels int8
     python -m mafyolo_tpu_torch.tools.tune_kernels int8_caps
     python -m mafyolo_tpu_torch.tools.tune_kernels int8_3x3
+    python -m mafyolo_tpu_torch.tools.tune_kernels dw [f32]
 
 `frontend`: the bf16 front-end kernel at bs32@640 for MAF-YOLO-N, -S and -M
 over a list of (tile rows, tile columns, threads), each checked against the
@@ -58,6 +59,20 @@ phase shares window, B wait, MMA, epilogue, store; sums per graph.
 INT8_CAPS (registers a thread, B lookahead) and timed at every
 site of its kind (N's and office N's 3x3 stride-1 sites), sums per class:
 the kernels' defaults were read from it.
+`dw`: the deploy depthwise kernel (csrc/dw_conv.cu) at every distinct
+depthwise site of MAF-YOLO-N's, -S's and -M's bf16 predict at bs32@640
+(random weights and inputs from a seed; `dw f32`: the same sites with f32
+activations, weights and bias, as an f32 predict runs them, beside cuDNN's
+f32 conv), each checked against the plain
+version on the card first (within one bf16 rounding of its f32 result): per
+site the kernel's ms on the same input (warm) and on copies taken in turn,
+none in L2 (cold), both replayed from a CUDA graph (a site takes less
+than the host needs to launch the op), its bytes, operations and bound,
+and cuDNN's conv with its bias and the site's activation (what the
+graph ran before the kernel; the port never calls it), cold; then sums per
+model and class (k, side); then a cold sweep of tile sides at each
+distinct site: its last line sums each side over the sites of a class,
+which ops/dw_deploy.py:TILE was read from.
 `int8_3x3`: the 3x3 stride-1 kernel at office N's, M's and L's sites: the
 plan's cold ms and phase shares per distinct site, then a cold sweep of
 output tiles x wgmma N x rings (int8_3x3's docstring); its last line is
@@ -77,6 +92,7 @@ from mafyolo_tpu_torch.core.evaler import Evaler
 from mafyolo_tpu_torch.models.graph import parse_graph
 from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
 from mafyolo_tpu_torch.ops import _build
+from mafyolo_tpu_torch.ops import dw_deploy as DD
 from mafyolo_tpu_torch.ops import dw_grad as DG
 from mafyolo_tpu_torch.ops import frontend as FE
 from mafyolo_tpu_torch.ops import neck as NK
@@ -344,14 +360,16 @@ def stem(dev):
 def int8_inputs(model, x):
     """{module name: (pack, input, act)} of every QuantConv2d of an int8 model
     in one forward of x; act is the activation its launch fuses (None when
-    the model applies it after the conv). The hook returns None: a pre-hook
-    that returns a value replaces the module's arguments."""
+    the model applies it after the conv, and at a depthwise site, whose
+    kernel fuses none). The hook returns None: a pre-hook that returns a
+    value replaces the module's arguments."""
     from mafyolo_tpu_torch.models.blocks import QuantConv2d
     seen, hooks = {}, []
 
     def keep(name):
         def hook(mod, args, kwargs):
-            seen.setdefault(name, (mod.int8, args[0], kwargs.get("act")))
+            act = None if mod.int8.kind == "dw" else kwargs.get("act")
+            seen.setdefault(name, (mod.int8, args[0], act))
         return hook
     for name, m in model.named_modules():
         if isinstance(m, QuantConv2d):
@@ -720,18 +738,143 @@ def int8_caps(dev):
         _build._LOADED.pop(lib, None)
 
 
+# ---- dw: the deploy depthwise kernel at every site of N's, S's and M's bf16 predict
+
+DW_GRAPHS = ("maf-yolo-n", "maf-yolo-s", "maf-yolo-m")
+DW_SIDES = (8, 12, 16, 20, 24, 32, 40)
+
+
+def dw_site_bound(x, k):
+    """(bytes, operations, bound ms) of a deploy depthwise site: x in and the
+    output out in x's dtype, the weights in x's dtype and an f32 bias once;
+    2 operations a multiply-add, at the bf16 peak (portbench's rule)."""
+    b, c, h, w = x.shape
+    es = x.element_size()
+    nbytes = 2 * b * c * h * w * es + c * k * k * es + 4 * c
+    ops = 2 * b * c * h * w * k * k
+    return nbytes, ops, max(nbytes / 3.35e12, ops / 989e12) * 1e3
+
+
+def dw_deploy_inputs(site, batch, dev, dtype=torch.bfloat16):
+    """x (offset 0.5: nonzero at every border), weights and a bias of the
+    site's C and k, in dtype, from a seed of the site's shape."""
+    c, h, w, k = site[:4]
+    gen = torch.Generator(device=dev).manual_seed(c * 7 + h + k)
+    x = (torch.randn((batch, c, h, w), generator=gen, device=dev) + 0.5) \
+        .to(dtype).contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn((c, 1, k, k), generator=gen, device=dev) / k).to(dtype)
+    bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+    return x, wt, bias
+
+
+def dw_f32_result(x, wt, bias, act):
+    """The plain version's f32 result of a site, before any rounding to x's
+    dtype (x's and the weights' values are exact in f32)."""
+    return DD.dw_conv_plain(x.float(), wt.float(), bias, act)
+
+
+def dw_within_rounding(got, want):
+    """got (bf16 or f32) within one rounding of its type of the f32 want,
+    beside the f32 error of a sum in another order (1e-5 of the largest)."""
+    tol = 2.0 ** -8 if got.dtype == torch.bfloat16 else 2.0 ** -23
+    err = (got.float() - want.float()).abs()
+    return bool((err <= tol * want.float().abs() + 1e-5 * want.float().abs().max()).all())
+
+
+def dw_cold_ms(fn, sets):
+    """Device ms of fn(x) on copies taken in turn, none in L2, replayed from
+    a CUDA graph of two passes over them: a site takes some 10-150 us, less
+    than the host needs to launch the op."""
+    return graph_ms(sample.in_turn(fn, sets), 2 * len(sets))
+
+
+def time_dw_site(x, wt, bias, act):
+    """One deploy depthwise site on the card: the kernel checked against the
+    plain version's f32 result (on the card), its warm ms (one input) and
+    cold ms (dw_cold_ms), bound, and cuDNN's conv with the bias and act of
+    the same shape, cold."""
+    k = wt.shape[-1]
+    got, want = DD.dw_conv(x, wt, bias, act), dw_f32_result(x, wt, bias, act)
+    ok, err = dw_within_rounding(got, want), (got.float() - want).abs().max().item()
+    del got, want
+    sets = sample.cold_sets((x,))
+    act_fn = DD.ACTS[act]
+    nbytes, ops, bound = dw_site_bound(x, k)
+    rec = {"shape": list(x.shape), "k": k, "act": act, "within_rounding": ok,
+           "max_abs_err": err, "launches": 1,
+           "tile": list(DD.dw_tile(k, *x.shape[2:], x.element_size())),
+           "ms": graph_ms(lambda: DD.dw_conv(x, wt, bias, act)),
+           "cold_ms": dw_cold_ms(lambda x: DD.dw_conv(x, wt, bias, act), sets),
+           "library_ms": dw_cold_ms(lambda x: act_fn(torch.nn.functional.conv2d(
+               x, wt, bias, 1, k // 2, 1, x.shape[1])), sets),
+           "bytes": nbytes, "ops": ops, "bound_ms": bound}
+    del sets
+    return rec
+
+
+def dw_tiles(k, h, w, esize):
+    """The tiles of the sweep: square sides below the image, its halves and
+    the whole image, each where its block fits in the card's shared memory."""
+    tiles = [(s, s) for s in DW_SIDES if s < max(h, w)] + [(h, -(-w // 2)), (-(-h // 2), w),
+                                                          (h, w)]
+    return [t for t in dict.fromkeys(tiles) if DD.smem_bytes(k, *t, esize) <= DD.SMEM_MAX]
+
+
+def dw(dev, dtype=torch.bfloat16):
+    sums, swept, summed = {}, set(), {}
+    esize = torch.empty((), dtype=dtype).element_size()
+    for name in DW_GRAPHS:
+        for site, count, front in sample.deploy_dw_sites(name, IMG, dev):
+            c, h, w, k, act = site
+            x, wt, bias = dw_deploy_inputs(site, BATCH, dev, dtype)
+            rec = time_dw_site(x, wt, bias, act)
+            print(json.dumps({"model": name, "site": list(site), "count": count,
+                              "front_end": front, **rec}), flush=True)
+            cls = f"{name} k{k} {h}px"
+            agg = sums.setdefault(cls, {"sites": 0, "front_end": front, "cold_ms": 0.0,
+                                        "library_ms": 0.0, "bound_ms": 0.0})
+            agg["sites"] += count
+            for key in ("cold_ms", "library_ms", "bound_ms"):
+                agg[key] += count * rec[key]
+            if (c, h, w, k) in swept:
+                continue
+            swept.add((c, h, w, k))
+            sets = sample.cold_sets((x,))
+            for tile in dw_tiles(k, h, w, esize):
+                def run(xx, tile=tile):
+                    return DD.dw_launch(xx, wt, bias, act, tile)
+                ok = dw_within_rounding(run(x), dw_f32_result(x, wt, bias, act))
+                ms = dw_cold_ms(run, sets)
+                print(json.dumps({"site": list(site), "tile": list(tile), "within_rounding": ok,
+                                  "picked": tile == DD.dw_tile(k, h, w, esize),
+                                  "cold_ms": ms}),
+                      flush=True)
+                side = "whole" if tile == (h, w) else tile[0] if tile[0] == tile[1] else \
+                    str(list(tile))
+                summed.setdefault(f"k{k} {h}px", {}).setdefault(side, []).append(ms)
+            del sets
+    for cls, agg in sums.items():
+        print(json.dumps({"class": cls, **agg,
+                          "bound_over_kernel": agg["bound_ms"] / agg["cold_ms"]}), flush=True)
+    print(json.dumps({"sweep_cold_ms_by_class": {
+        c: {str(t): [sum(v), len(v)] for t, v in d.items()} for c, d in summed.items()}}),
+        flush=True)
+
+
 def _out_hw(p, x):
     h, w = x.shape[2:]
     return (h + 2 * p.pad - p.k) // p.stride + 1, (w + 2 * p.pad - p.k) // p.stride + 1
 
 
 COMMANDS = {"frontend": frontend, "neck": neck, "dw_grad": dw_grad, "nms": nms, "stem": stem,
-            "int8": int8, "int8_caps": int8_caps, "int8_3x3": int8_3x3}
+            "int8": int8, "int8_caps": int8_caps, "int8_3x3": int8_3x3, "dw": dw}
 
 if __name__ == "__main__":
     args = sys.argv[1:]
     if args == ["dw_grad", "all"]:      # every cut of the sweep, not the best four
         args, COMMANDS["dw_grad"] = ["dw_grad"], lambda dev: dw_grad(dev, full=True)
+    if args == ["dw", "f32"]:
+        args, COMMANDS["dw"] = ["dw"], lambda dev: dw(dev, torch.float32)
     if len(args) != 1 or args[0] not in COMMANDS:
         sys.exit(__doc__)
     if not torch.cuda.is_available():

@@ -241,6 +241,34 @@ def dw_sites(model, img, device):
     return sites
 
 
+def deploy_dw_sites(name, img, device):
+    """[((C, H, W, k, act), count, front_end)] of the depthwise convs of a
+    deploy model's forward at img x img, in the order first met: every
+    ConvAct whose conv is depthwise, act the activation it fuses, front_end
+    whether its layer is one of 0-2 (which the front-end kernel runs on a
+    predict whose sides are multiples of 4)."""
+    from mafyolo_tpu_torch.models import build_model
+    from mafyolo_tpu_torch.models.blocks import ConvAct
+    model = build_model(name, nc=NC, deploy=True).to(device).eval()
+    sites, hooks = {}, []
+
+    def keep(mod, args, front):
+        c = args[0].shape[1]
+        key = (c, args[0].shape[2], args[0].shape[3], mod.conv.kernel_size[0], mod.act)
+        count, _ = sites.get(key, (0, front))
+        sites[key] = (count + 1, front)
+    for mname, m in model.named_modules():
+        if isinstance(m, ConvAct) and 1 < m.conv.groups == m.conv.in_channels:
+            front = int(mname.split(".")[1][len("layer"):]) <= 2
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args, front=front: keep(mod, args, front)))
+    with torch.no_grad():
+        model(torch.zeros(1, img, img, 3, device=device))
+    for h in hooks:
+        h.remove()
+    return [(key, count, front) for key, (count, front) in sites.items()]
+
+
 def dw_site_inputs(site, batch, dev):
     """bf16 channels-last x (offset 0.5: nonzero at every border) and g."""
     c, h, w, k, pad, dil = site

@@ -541,6 +541,119 @@ def test_int8_kernels_read_channel_slices(cuda_device):
             assert torch.equal(got, want)
 
 
+def _dw_deploy_case(site, batch, dtype, device):
+    from mafyolo_tpu_torch.tools.tune_kernels import dw_deploy_inputs
+    x, wt, bias = dw_deploy_inputs(site, batch, device, dtype)
+    return x, wt, bias
+
+
+@pytest.mark.parametrize("batch", [32, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["maf-yolo-n", "maf-yolo-s", "maf-yolo-m"])
+def test_dw_conv_kernel_at_model_sites(cuda_device, name, dtype, batch):
+    """The deploy depthwise kernel at every distinct depthwise site of the
+    model's predict at 640 px against F.conv2d in f32 (TF32 off) with the
+    bias and the site's activation: f32 within f32 rounding, bf16 within one
+    bf16 rounding of the f32 result (beside 1e-5 of the largest output for
+    the f32 sums' other order); one launch a call."""
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
+    from mafyolo_tpu_torch.tools.tune_kernels import dw_within_rounding
+    from mafyolo_tpu_torch.utils.sample import deploy_dw_sites
+    for site, _, _ in deploy_dw_sites(name, 640, cuda_device):
+        x, wt, bias = _dw_deploy_case(site, batch, dtype, cuda_device)
+        act = site[4]
+        before = DD.dw_conv.launches
+        got = DD.dw_conv(x, wt, bias, act)
+        want = DD.ACTS[act](nn.functional.conv2d(x.float(), wt.float(), bias.float(),
+                                                  padding=site[3] // 2, groups=site[0]))
+        torch.cuda.synchronize()
+        assert DD.dw_conv.launches == before + 1
+        assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+        assert dw_within_rounding(got, want), (site, (got.float() - want).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 5, 7, 9])
+@pytest.mark.parametrize("shape", [(2, 341, 20, 20), (3, 72, 37, 23), (1, 33, 41, 40),
+                                   (2, 5, 6, 7), (1, 8, 1, 1)])
+def test_dw_conv_kernel_odd_shapes(cuda_device, dtype, k, shape):
+    """C not a multiple of 32 or 8 (element loads), ragged tiles, 1x1 images;
+    each activation; the bias in f32 and in x's dtype; a channel slice
+    read in place with its pixel pitch; a second launch bit-identical; any
+    tile that fits the same bits, and a launch over the block's shared
+    memory raises."""
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
+    from mafyolo_tpu_torch.tools.tune_kernels import dw_f32_result, dw_within_rounding
+    b, c, h, w = shape
+    x, wt, bias = _dw_deploy_case((c, h, w, k), b, dtype, cuda_device)
+    for act in (None, "relu", "silu"):
+        for bb in (bias, bias.float()):
+            got = DD.dw_conv(x, wt, bb, act)
+            assert dw_within_rounding(got, dw_f32_result(x, wt, bb, act)), (act, bb)
+            assert torch.equal(got, DD.dw_conv(x, wt, bb, act))
+        xs = torch.cat([x, x], 1)[:, c // 2:c // 2 + c]
+        assert torch.equal(DD.dw_conv(xs, wt, bias, act),
+                           DD.dw_conv(xs.contiguous(memory_format=torch.channels_last), wt,
+                                      bias, act))
+    for tile in ((4, 4), (5, 7), (h, w)):
+        if DD.smem_bytes(k, *tile, x.element_size()) > DD.SMEM_MAX:   # over the shared memory
+            with pytest.raises(RuntimeError):
+                DD.dw_launch(x, wt, bias, "silu", tile)
+            continue
+        assert torch.equal(DD.dw_launch(x, wt, bias, "silu", tile),
+                           DD.dw_conv(x, wt, bias, "silu"))
+
+
+def test_dw_conv_kernel_in_graph_capture(cuda_device):
+    """The op captured into a CUDA graph (as PredictGraphs captures it):
+    each replay equals the eager call bit for bit on new inputs copied into
+    the static one; the launch counter moves at capture only."""
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
+    x, wt, bias = _dw_deploy_case((192, 40, 40, 7), 4, torch.bfloat16, cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        DD.dw_conv(x, wt, bias, "silu")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DD.dw_conv(x, wt, bias, "silu")
+    before = DD.dw_conv.launches
+    for seed in (1, 2):
+        new = torch.randn(x.shape, device=cuda_device,
+                          generator=torch.Generator(device=cuda_device).manual_seed(seed))
+        x.copy_(new)
+        graph.replay()
+        assert torch.equal(out, DD.dw_conv(x, wt, bias, "silu"))
+    assert DD.dw_conv.launches == before + 2
+
+
+def test_dw_conv_launches_a_predict(cuda_device):
+    """dw_conv.launches moves 15 a bf16 N predict and 15 an f32 one (every
+    depthwise site past the front-end), through the graphs and eager; 0 an
+    int8 predict, whose int8_dw launches stay 16."""
+    from mafyolo_tpu_torch.core import quant as Q
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
+    from mafyolo_tpu_torch.ops import quant_conv as QC
+    imgs = torch.from_numpy(u8_images(7, (2, 128, 128, 3))).to(cuda_device)
+    for half in (True, False):
+        ev, folded = _graph_evaler(cuda_device, half=half)
+        for predict in (ev.predict, ev.predict_eager, ev.predict):
+            before = DD.dw_conv.launches
+            predict(imgs)
+            torch.cuda.synchronize()
+            assert DD.dw_conv.launches - before == 15, (half, predict)
+    with torch.no_grad():
+        quant = Q.ptq_calibrate("maf-yolo-n", 7, folded, [imgs], max_batches=1,
+                                device=cuda_device)
+    p8 = Q.int8_predict_fn("maf-yolo-n", 7, folded, quant, device=cuda_device)
+    for predict in (p8.eager, p8, p8):
+        before = (DD.dw_conv.launches, QC.int8_dw.launches)
+        predict(imgs)
+        torch.cuda.synchronize()
+        assert (DD.dw_conv.launches - before[0], QC.int8_dw.launches - before[1]) == (0, 16)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("act", ["relu", "silu"])
 @pytest.mark.parametrize("shape,cout,k,stride", [((2, 64, 40, 40), 128, 1, 1),

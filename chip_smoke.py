@@ -71,7 +71,8 @@ Phases, in order; any failure exits non-zero without a result line:
                 model's own layer 0's, each call on the next of enough
                 copies of the input that none is in L2; then timing_dw:
                 the deploy depthwise kernel at every depthwise site of N,
-                S and M at bs32@640, within one bf16 rounding of its plain
+                S, M and YOLO11x (its eight k 3 sites) at bs32@640, within
+                one bf16 rounding of its plain
                 version, timed the same way beside cuDNN's conv with its
                 bias and activation, by class (k, side);
  15. train      MAF-YOLO-N train steps at bs32@640 in bf16 through the
@@ -182,6 +183,16 @@ Phases, in order; any failure exits non-zero without a result line:
                 the exported programs) and by the detection shares of bf16
                 and int8 on trained heads (overfit_phase's docstring lists
                 the gates).
+ 30. yolo11     Ultralytics YOLO11x at published widths (56.92 M
+                parameters, 194.9 GFLOPs at 640) served through
+                Evaler.predict in bf16 and f32 at bs32@640 (yolo11_phase's
+                docstring lists the gates): no front-end route, 2
+                psa_attention and 8 dw_conv launches a predict, graph
+                against eager bit for bit, bf16 against f32 held by its
+                share floor, img/s and batch ms; then psa_check:
+                psa_attention in bf16 and f32 against a plain f32
+                attention at [32, 6, 400, 32 / 64], and the ms of its
+                padding beside FlashAttention's.
  graphs         every serving path on the card is one CUDA-graph replay a
                 predict (core/graphs.py): in phases 7, 10, 13, 21, 26 and 27
                 each path (bf16 N, S, M, office N, M, L; int8 N, S, M, office
@@ -710,7 +721,9 @@ COUNTED_KERNELS = {"frontend_forward.launches": ("frontend_kernel<", "frontend_m
                    "int8_conv.launches": ("int8_conv_kernel<", "conv3x3_kernel<"),
                    "int8_conv.launches_3x3": ("conv3x3_kernel<",),
                    "int8_dw.launches": ("int8_dw_kernel<",),
-                   "dw_conv.launches": ("dw_conv_kernel<",)}
+                   "dw_conv.launches": ("dw_conv_kernel<",),
+                   # FlashAttention in bf16, the memory-efficient kernel in f32
+                   "psa_attention.launches": ("flash_fwd_kernel<", "fmha_cutlassF")}
 GRAPH_RATES = {}           # path -> graphs_check's times of both routes
 
 
@@ -1150,6 +1163,8 @@ def main():
     torch.set_grad_enabled(True)
     remat = remat_phase(dev, card)
     ov = overfit_phase(dev, card)
+    with torch.no_grad():
+        y11 = yolo11_phase(dev, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -1165,7 +1180,8 @@ def main():
         {"name": "greedy_nms", "route": "cuda", "source": "mafyolo_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "mafyolo_tpu/ops/pallas_nms.py:60",
          "launches": launches["greedy_nms"] + rec["greedy_nms"] + office["launches"]["greedy_nms"]
-         + xq["launches"]["greedy_nms"] + remat["greedy_nms"] + ov["greedy_nms"],
+         + xq["launches"]["greedy_nms"] + remat["greedy_nms"] + ov["greedy_nms"]
+         + y11["greedy_nms"],
          "max_abs_err": nms_err,
          "ms": nms_ms[512], "plain_ms": nms_plain_ms[512],
          "bound_ms": nms_bound["bound_ms"], "bound_by": nms_bound["bound_by"],
@@ -1188,7 +1204,7 @@ def main():
           for k in quant_kernels],
         xq["kernel3x3"],
         dict(dw_kernel, launches=launches["dw_conv"] + rec["dw_conv"] + remat["dw_conv"]
-             + ov["dw_conv"]),
+             + ov["dw_conv"] + y11["dw_conv"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -1451,8 +1467,9 @@ def stem_timing(dev, models):
 
 def dw_timing(dev):
     """Phase 14, second part: the deploy depthwise kernel alone at every
-    depthwise site of N's, S's and M's bf16 predict at bs32@640
-    (tools/tune_kernels.py:time_dw_site: random weights, bias and inputs
+    depthwise site of N's, S's, M's and YOLO11x's bf16 predict at bs32@640
+    (YOLO11x: its eight k 3 sites, C 384 and 768 at 80, 40 and 20 px, SiLU
+    or none; tools/tune_kernels.py:time_dw_site: random weights, bias and inputs
     from a seed; cold, the inputs taken in turn, none in L2, from a CUDA
     graph): each within one
     bf16 rounding of its plain version's f32 result on the card, its ms
@@ -1460,6 +1477,7 @@ def dw_timing(dev):
     (library_ms: what the graph ran before the kernel) and the bound, summed
     by class (k, side); then the plain version's ms on N's sites. Returns
     the kernels line's entry: N's 15 sites past the front-end, summed."""
+    from mafyolo_tpu_torch.models.yolo11 import yolo11_graph
     from mafyolo_tpu_torch.ops import dw_deploy as DD
     from mafyolo_tpu_torch.tools.tune_kernels import (DW_GRAPHS, dw_deploy_inputs,
                                                       time_dw_site)
@@ -1467,8 +1485,9 @@ def dw_timing(dev):
     from mafyolo_tpu_torch.utils.timing import cuda_ms
     classes, n_sum, bad = {}, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                                 "bound_bytes": 0, "bound_flops": 0, "max_abs_err": 0.0}, []
-    for name in DW_GRAPHS:
-        for site, count, front in deploy_dw_sites(name, IMG, dev):
+    graphs = {**{name: name for name in DW_GRAPHS}, "yolo11x": yolo11_graph("x")}
+    for name, graph in graphs.items():
+        for site, count, front in deploy_dw_sites(graph, IMG, dev):
             x, wt, bias = dw_deploy_inputs(site, BATCH, dev)
             rec = time_dw_site(x, wt, bias, site[4])
             if not rec["within_rounding"]:
@@ -4335,6 +4354,154 @@ def overfit_phase(dev, card):
         check(shares[key]["ref_dets_above_0p1"] >= 100 and shares[key]["share"] >= floor,
               f"overfit: {key} share {shares[key]} < {floor}")
     return {k: v - start[k] for k, v in OF.launch_counts().items()}
+
+
+
+YOLO11_BATCHES = 4          # bs32@640 batches of the YOLO11x predict
+# psa_attention against the plain f32 attention on the same inputs, the
+# largest |error| / (|out| + P|v|) allowed (psa_check). bf16: FlashAttention
+# rounds P to bf16 before P v (at most 2^-9 P|v|) and its output once (2^-9
+# |out|), so 2^-8 is twice both roundings. f32: the memory-efficient kernel;
+# 2^-11 is the rounding of TF32 inputs, which f32 products stay inside. A
+# fault in the padding or the scale moves the output by tenths of P|v|.
+PSA_TOL = {"bf16": 2.0 ** -8, "f32": 2.0 ** -11}
+# bf16 against f32, the share of f32 detections matched (bf16_vs_f32): 0.6 x
+# the first card run's, as BF16_SHARE_FLOOR
+YOLO11_SHARE_FLOOR = 0.364
+
+
+def psa_check(dev, batch=BATCH):
+    """ops/attention.py:psa_attention on the card at YOLO11x's shapes, bs32
+    @640: q, k [batch, 6, 400, 32] and v [batch, 6, 400, 64], strided views of one
+    channels-last qkv map interleaved a head as Attention.forward takes them
+    (N(0, 1); scale 32^-0.5), in bf16 and in f32, against softmax(q k^T
+    scale) v computed plainly in f32 (TF32 off) from the same values: each
+    within PSA_TOL of |out| + P|v|, elementwise. The check must reject the
+    output of the wrong scale (64^-0.5, what padding to 64 would give if the
+    scale followed the padded size). Then the device ms a bf16 call spends
+    in the zero padding of q and k (two F.pad) and in FlashAttention on the
+    padded inputs, each from a CUDA graph, times the two PSA blocks of a
+    batch: attn_ms.serve reads only the second."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from mafyolo_tpu_torch.ops import attention as AT
+    from mafyolo_tpu_torch.utils.timing import graph_ms
+    heads, kd, hd, n = 6, 32, 64, 400
+    scale = kd ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(24)
+    raw = torch.randn(batch, 20, 20, heads * (2 * kd + hd), device=dev, generator=gen)
+    rec = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        t = raw.to(dtype).reshape(batch, n, heads, 2 * kd + hd)
+        q, k, v = (t[..., :kd].transpose(1, 2), t[..., kd:2 * kd].transpose(1, 2),
+                   t[..., 2 * kd:].transpose(1, 2))
+        got = AT.psa_attention(q, k, v, scale).float()
+        qf, kf, vf = q.float(), k.float(), v.float()
+        logits = qf @ kf.transpose(-1, -2)
+        p = torch.softmax(logits * scale, -1)
+        want, mag = p @ vf, p @ vf.abs()
+        room = PSA_TOL[tag] * (want.abs() + mag)
+        ratio = ((got - want).abs() / room).max().item()
+        wrong = torch.softmax(logits * hd ** -0.5, -1) @ vf
+        fault = ((wrong - want).abs() / room).max().item()
+        rec[tag] = {"err_over_tol": ratio, "scale_fault_over_tol": fault,
+                    "max_abs_err": (got - want).abs().max().item(),
+                    "out_abs_max": want.abs().max().item()}
+        check(ratio <= 1.0 and fault > 1.0,
+              f"psa_attention {tag} against the plain f32 attention: {rec[tag]}")
+        if tag == "bf16":
+            qp, kp = F.pad(q, (0, hd - kd)), F.pad(k, (0, hd - kd))
+
+            def flash():
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    F.scaled_dot_product_attention(qp, kp, v, scale=scale)
+            rec["pad_ms_a_batch"] = 2 * graph_ms(
+                lambda: (F.pad(q, (0, hd - kd)), F.pad(k, (0, hd - kd))))
+            rec["flash_ms_a_batch"] = 2 * graph_ms(flash)
+    emit(phase="psa_check", shape=[batch, heads, n, kd, hd], tol=PSA_TOL, **rec)
+    return rec
+
+
+def yolo11_phase(dev, card):
+    """Phase 30: Ultralytics YOLO11x (models/yolo11.py) at published widths
+    served on the card through Evaler.predict, bf16 and f32, on
+    random_deploy weights (conditioned at conf 0.03), YOLO11_BATCHES
+    batches of bs32 uint8 @640.
+
+    Gates: 56,919,408 deploy parameters; no front-end route (fe_skip -1);
+    2 psa_attention launches (the two PSA blocks), 8 dw_conv launches (six
+    Detect DWConvs, two PSA pe convs, all k 3) and at least one NMS launch
+    a predict, no front-end launch; the detections well formed (check_dets);
+    the bf16 predict's CUDA graph against its eager predict bit for bit;
+    the bf16 predict against the f32 one on the first batch at
+    YOLO11_SHARE_FLOOR or more (bf16_vs_f32); psa_attention against a plain
+    f32 attention (psa_check; the dw_conv kernel at YOLO11x's k 3 sites is
+    held to its plain version in dw_timing). Emits the launches, img/s
+    and batch ms p50 / p90 of the bf16 graph route, and its peak memory.
+    -> the phase's launches by kernel (psa_check's calls not among them)."""
+    import torch
+
+    from mafyolo_tpu_torch.models.yolo11 import yolo11_graph
+    from mafyolo_tpu_torch.ops import attention as AT
+    from mafyolo_tpu_torch.ops import dw_deploy as DD
+    from mafyolo_tpu_torch.ops import frontend as FE
+    from mafyolo_tpu_torch.ops import greedy_nms as G
+    from mafyolo_tpu_torch.utils.sample import evaler, images, random_deploy
+
+    def launches():
+        return {"psa_attention": AT.psa_attention.launches, "dw_conv": DD.dw_conv.launches,
+                "greedy_nms": G.greedy_nms.launches, "frontend": FE.frontend_forward.launches}
+
+    graph = yolo11_graph("x")
+    folded, _ = random_deploy(graph, dev)
+    ev = evaler(graph, folded, True, dev)
+    params = sum(p.numel() for p in ev.model.parameters())
+    check(params == 56_919_408 and ev.fe_skip == -1 and ev.model.reg_max == 15,
+          f"yolo11x: {params} parameters, front-end route {ev.fe_skip}, reg_max "
+          f"{ev.model.reg_max}")
+    batches = [images(900 + i, BATCH).to(dev) for i in range(YOLO11_BATCHES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = launches()
+    outs = [ev.predict(bt) for bt in batches]
+    torch.cuda.synchronize()
+    n = {k: v - start[k] for k, v in launches().items()}
+    check(n["psa_attention"] == 2 * YOLO11_BATCHES and n["dw_conv"] == 8 * YOLO11_BATCHES
+          and n["greedy_nms"] >= YOLO11_BATCHES and n["frontend"] == 0,
+          f"yolo11x: launches over {YOLO11_BATCHES} predicts {n}")
+    check_dets(outs, BATCH, "yolo11x")
+    x = batches[0]
+    eager = ev.predict_eager(x)
+    same = all(torch.equal(eager[k], outs[0][k]) for k in eager)
+    check(same, "yolo11x: the bf16 graph's detections differ from the eager predict's")
+    times = []
+    for bt in batches * 3:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        ev.predict(bt)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    ev32 = evaler(graph, folded, False, dev)
+    share = bf16_vs_f32("yolo11x", ev32.predict(x), outs[0], ev32.forward(x),
+                        ev.forward(x))["share"]
+    emit(phase="yolo11", model="yolo11x", card=card, dtype="bf16", batch=BATCH, img=IMG,
+         params=params, launches=n, graph_equals_eager=same,
+         dets_per_image_mean=float(torch.cat([o["valid"].sum(1) for o in outs])
+                                   .float().mean().item()),
+         img_per_s=1e3 * BATCH * len(times) / sum(times),
+         p50_batch_ms=times[len(times) // 2], p90_batch_ms=times[int(0.9 * (len(times) - 1))],
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, bf16_share=share,
+         share_floor=YOLO11_SHARE_FLOOR)
+    check(share >= YOLO11_SHARE_FLOOR,
+          f"yolo11x bf16 against f32: share {share} < {YOLO11_SHARE_FLOOR}")
+    del ev, ev32, batches, outs
+    torch.cuda.empty_cache()
+    psa_check(dev)
+    return n
 
 
 if __name__ == "__main__":

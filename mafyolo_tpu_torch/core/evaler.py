@@ -110,7 +110,9 @@ class Evaler:
         variables: the JAX tree layout, numpy leaves; folded deploy
         variables, or with folded=False train-form {'params', 'batch_stats'}
         (e.g. the EMA, utils/bridge.py:state_dict_to_train_variables), which
-        models/reparam.py folds first."""
+        models/reparam.py folds first. The decode takes the graph's own
+        DFL bins (build_model's reg_max: 16 for MAF and office heads, 15 for
+        YOLO11's Detect)."""
         self.dtype = torch.bfloat16 if self.half else torch.float32
         model = build_model(graph, nc=nc, deploy=True)
         if not folded:

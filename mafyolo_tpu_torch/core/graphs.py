@@ -61,13 +61,14 @@ from collections import OrderedDict
 
 import torch
 
-from mafyolo_tpu_torch.ops import dw_deploy, frontend, greedy_nms, quant_conv
+from mafyolo_tpu_torch.ops import attention, dw_deploy, frontend, greedy_nms, quant_conv
 from mafyolo_tpu_torch.utils import trace
 
 # (function, attribute) of every launch counter on the serving paths
 COUNTERS = ((frontend.frontend_forward, "launches"), (greedy_nms.greedy_nms, "launches"),
             (quant_conv.int8_conv, "launches"), (quant_conv.int8_conv, "launches_3x3"),
-            (quant_conv.int8_dw, "launches"), (dw_deploy.dw_conv, "launches"))
+            (quant_conv.int8_dw, "launches"), (dw_deploy.dw_conv, "launches"),
+            (attention.psa_attention, "launches"))
 MAX_KEYS = 8       # keys a PredictGraphs holds at once
 
 

@@ -43,6 +43,7 @@ from mafyolo_tpu_torch.data.device_aug import aug_seed, device_augment
 from mafyolo_tpu_torch.models.losses import detection_loss
 from mafyolo_tpu_torch.models.losses.distill import distill_detection_loss
 from mafyolo_tpu_torch.models.losses.simota import simota_loss
+from mafyolo_tpu_torch.models.yolo11 import refuse as refuse_yolo11
 from mafyolo_tpu_torch.parallel import ddp
 from mafyolo_tpu_torch.solver.build import GROUP_BIAS, GROUP_BNW, GROUP_WEIGHT, build_optimizer
 from mafyolo_tpu_torch.utils.ema import ModelEMA
@@ -133,6 +134,7 @@ def make_train_step(*, num_classes: int, img_size: int,
              lr_b: float, momentum: float, do_apply: bool, use_atss: bool,
              epoch_num=0, mark: Optional[Callable[[str], None]] = None
              ) -> Dict[str, torch.Tensor]:
+        refuse_yolo11(getattr(state.model, "specs", ()), "the train step")
         model = state.model.train()
         dev = imgs_u8.device.type
         data_parallel = ddp.world_size() > 1

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mafyolo_tpu_torch.ops import dw_deploy
+from mafyolo_tpu_torch.ops import attention, dw_deploy
 from mafyolo_tpu_torch.ops import quant_conv as QC
 from mafyolo_tpu_torch.ops.dwconv import dw_conv
 from mafyolo_tpu_torch.parallel import ddp
@@ -842,6 +842,172 @@ class Head_Effide(nn.Module):
         x = self.stem(x)
         cls = self.cls_pred(self.cls_conv(x))
         reg = self.reg_pred(self.reg_conv(x))
+        if self.deploy:
+            return x, torch.sigmoid(cls), reg
+        return x, torch.sigmoid(cls.float()), reg.float()
+
+
+# ---------------------------------------------------------------------------
+# Ultralytics YOLO11's blocks (ultralytics/nn/modules/block.py, head.py), in
+# train form (conv + BN + act, Ultralytics' Conv) and deploy form (biased
+# conv + act); models/reparam.py folds every conv + BN pair. Submodule names
+# follow Ultralytics' (cv1, cv2, cv3, m.<i>, attn, ffn.<i>, qkv, proj, pe),
+# with the port's conv / bn pair in place of Conv's.
+
+
+class Bottleneck(nn.Module):
+    """Two 3x3 conv-BN-SiLU (cv1 to int(cout * e), cv2 back to cout), added
+    to the input when shortcut and cin == cout."""
+
+    def __init__(self, cin: int, cout: int, shortcut: bool = True, e: float = 0.5,
+                 deploy: bool = False):
+        super().__init__()
+        c_ = int(cout * e)
+        cv = _convish(deploy)
+        self.cv1 = cv(cin, c_, 3, act="silu")
+        self.cv2 = cv(c_, cout, 3, act="silu")
+        self.add = shortcut and cin == cout
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3k(nn.Module):
+    """CSP block of n Bottlenecks (e 1.0) on cv1's branch: cv3(cat(m(cv1
+    x), cv2 x)), cv1 and cv2 1x1 to c_ = int(cout * e), cv3 1x1 from 2c_."""
+
+    def __init__(self, cin: int, cout: int, n: int = 2, e: float = 0.5, deploy: bool = False):
+        super().__init__()
+        c_ = int(cout * e)
+        cv = _convish(deploy)
+        self.cv1 = cv(cin, c_, 1, act="silu")
+        self.cv2 = cv(cin, c_, 1, act="silu")
+        self.cv3 = cv(2 * c_, cout, 1, act="silu")
+        self.m = nn.ModuleList(Bottleneck(c_, c_, e=1.0, deploy=deploy) for _ in range(n))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        for m in self.m:
+            y = m(y)
+        return self.cv3(torch.cat([y, self.cv2(x)], 1))
+
+
+class C3k2(nn.Module):
+    """C2f with C3k blocks (c3k) or Bottlenecks: cv1 1x1 to 2c (c = int(cout
+    * e)), its output in two chunks, n blocks chained on the last chunk,
+    every output kept, cv2 1x1 from (2 + n) c over their concatenation."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1, c3k: bool = False, e: float = 0.5,
+                 deploy: bool = False):
+        super().__init__()
+        self.c = c = int(cout * e)
+        cv = _convish(deploy)
+        self.cv1 = cv(cin, 2 * c, 1, act="silu")
+        self.cv2 = cv((2 + n) * c, cout, 1, act="silu")
+        self.m = nn.ModuleList((C3k(c, c, 2, deploy=deploy) if c3k
+                                else Bottleneck(c, c, deploy=deploy)) for _ in range(n))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        ys = [y[:, :self.c], y[:, self.c:]]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over the map's cells (Ultralytics'
+    Attention): qkv a 1x1 conv-BN (no act) to dim + 2 heads key_dim, viewed
+    [B, heads, 2 key_dim + head_dim, N] (q, k and v interleaved a head),
+    softmax(q^T k * key_dim^-0.5) over the keys, then v attn^T as [B, dim,
+    H, W] plus pe(v) (a depthwise 3x3 conv-BN, no act), then proj (1x1
+    conv-BN, no act). The attention is ops/attention.py:psa_attention."""
+
+    def __init__(self, dim: int, num_heads: int, attn_ratio: float = 0.5,
+                 deploy: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        cv = _convish(deploy)
+        self.qkv = cv(dim, dim + 2 * self.key_dim * num_heads, 1)
+        self.proj = cv(dim, dim, 1)
+        self.pe = cv(dim, dim, 3, groups=dim)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        kd, hd = self.key_dim, self.head_dim
+        # channels_last: [B, H, W, C] in memory, so [B, N, heads, 2kd + hd] is a view
+        t = self.qkv(x).permute(0, 2, 3, 1).reshape(b, h * w, self.num_heads, 2 * kd + hd)
+        q, k, v = (t[..., :kd].transpose(1, 2), t[..., kd:2 * kd].transpose(1, 2),
+                   t[..., 2 * kd:])
+        out = attention.psa_attention(q, k, v.transpose(1, 2), self.scale)
+        out = out.transpose(1, 2).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        pe = self.pe(v.reshape(b, h, w, c).permute(0, 3, 1, 2))
+        return self.proj(out + pe)
+
+
+class PSABlock(nn.Module):
+    """x + attn(x), then + ffn(x): ffn a 1x1 conv-BN-SiLU to 2c and a 1x1
+    conv-BN back to c."""
+
+    def __init__(self, c: int, num_heads: int, deploy: bool = False):
+        super().__init__()
+        cv = _convish(deploy)
+        self.attn = Attention(c, num_heads, 0.5, deploy=deploy)
+        self.ffn = nn.Sequential(cv(c, 2 * c, 1, act="silu"), cv(2 * c, c, 1))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.ffn(x)
+
+
+class C2PSA(nn.Module):
+    """cv1 1x1 to 2c (c = int(cin * e)), split in a and b, n PSABlocks of
+    c // 64 heads on b, cv2 1x1 over cat(a, b)."""
+
+    def __init__(self, cin: int, cout: int, n: int = 1, e: float = 0.5, deploy: bool = False):
+        super().__init__()
+        if cin != cout:
+            raise ValueError(f"C2PSA keeps its width: cin {cin} != cout {cout}")
+        self.c = c = int(cin * e)
+        cv = _convish(deploy)
+        self.cv1 = cv(cin, 2 * c, 1, act="silu")
+        self.cv2 = cv(2 * c, cin, 1, act="silu")
+        self.m = nn.Sequential(*(PSABlock(c, c // 64, deploy=deploy) for _ in range(n)))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y[:, :self.c], self.m(y[:, self.c:])], 1))
+
+
+class Head_Detect(nn.Module):
+    """One level of Ultralytics' Detect (legacy False, YOLO11's) ->
+    (input feat, sigmoid(cls), raw DFL reg). Regression: 3x3 conv-BN-SiLU to
+    c2, 3x3 to c2, reg_pred 1x1 to 4 (reg_max + 1); classes: a depthwise 3x3
+    conv-BN-SiLU, 1x1 to c3, a depthwise 3x3, 1x1 c3, cls_pred 1x1 to nc.
+    c2 and c3 are the parse's (from the first level's width). Deploy form:
+    cls scores in the model dtype; train form: in f32."""
+
+    def __init__(self, cin: int, c2: int, c3: int, reg_max: int = 15, nc: int = 80,
+                 deploy: bool = False):
+        super().__init__()
+        self.deploy = deploy
+        cv = _convish(deploy)
+        self.reg0 = cv(cin, c2, 3, act="silu")
+        self.reg1 = cv(c2, c2, 3, act="silu")
+        self.reg_pred = nn.Conv2d(c2, 4 * (reg_max + 1), 1)
+        self.cls_dw0 = cv(cin, cin, 3, groups=cin, act="silu")
+        self.cls_pw0 = cv(cin, c3, 1, act="silu")
+        self.cls_dw1 = cv(c3, c3, 3, groups=c3, act="silu")
+        self.cls_pw1 = cv(c3, c3, 1, act="silu")
+        self.cls_pred = nn.Conv2d(c3, nc, 1)
+
+    def forward(self, x):
+        reg = self.reg_pred(self.reg1(self.reg0(x)))
+        cls = self.cls_pred(self.cls_pw1(self.cls_dw1(self.cls_pw0(self.cls_dw0(x)))))
         if self.deploy:
             return x, torch.sigmoid(cls), reg
         return x, torch.sigmoid(cls.float()), reg.float()

@@ -4,7 +4,10 @@
 copy of mafyolo_tpu/models/graph.py:28-166: the row kinds of the MAF-YOLO
 graphs, of the reference-format yaml graphs that SimOTA and repopt users
 bring (Conv, SimConv, Head_simota) and of the office graphs
-(models/office.py: RepBlock, BepC3, SimSPPF, Transpose, Head_Effide).
+(models/office.py: RepBlock, BepC3, SimSPPF, Transpose, Head_Effide);
+beside them, which the JAX package lacks, Ultralytics YOLO11's rows
+(models/yolo11.py: C3k2, C2PSA, Head_Detect, and Ultralytics' width rule
+for a graph that names max_channels).
 tests/test_torch_graph.py pins the parse equal to the JAX one for N, S, M
 and such a yaml, tests/test_torch_office.py for the office graphs. The
 executor walks the layers in order and keeps the outputs that later rows
@@ -26,6 +29,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from mafyolo_tpu_torch.models import blocks as B
+from mafyolo_tpu_torch.models.yolo11 import refuse as refuse_yolo11
 from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
 
 
@@ -61,9 +65,20 @@ def parse_graph(graph: dict, nc: int, ch_in: int = 3):
     specs = []
     save = set()
     out_frm: Tuple[int, ...] = ()
+    # an Ultralytics graph (models/yolo11.py) names max_channels: its rows'
+    # widths follow Ultralytics' parse_model, and at scales m, l and x every
+    # C3k2 row takes C3k blocks
+    max_ch = graph.get("max_channels")
+    c3k_forced = graph.get("scale") in ("m", "l", "x")
+    detect_c1 = None       # the first Head_Detect level's width
 
     def cin_of(f: int, i: int) -> int:
         return ch_in if i == 0 else ch[f]
+
+    def width(c, divisor: int) -> int:
+        if max_ch is not None:
+            return make_divisible(min(c, max_ch) * gw, 8)
+        return make_divisible(c * gw, divisor)
 
     for i, (f, n, m, args) in enumerate(rows):
         kind = {"nn.Upsample": "Upsample"}.get(m.strip(), m.strip())
@@ -76,12 +91,12 @@ def parse_graph(graph: dict, nc: int, ch_in: int = 3):
             c2 = make_divisible(args[0] * gw, 4)
             kw = dict(cin=c1, cout=c2, stride=args[2] if len(args) > 2 else 1)
         elif kind in ("Conv", "SimConv"):
-            c2 = make_divisible(args[0] * gw, 4)
+            c2 = width(args[0], 4)
             kw = dict(cout=c2, k=args[1] if len(args) > 1 else 1,
                       stride=args[2] if len(args) > 2 else 1)
         elif kind == "SPPF":
             c1 = cin_of(frm[0], i)
-            c2 = make_divisible(args[0] * gw, 4)
+            c2 = width(args[0], 4)
             kw = dict(cin=c1, cout=c2, k=args[1] if len(args) > 1 else 5)
         elif kind == "RepHDW":
             c1 = cin_of(frm[0], i)
@@ -137,6 +152,27 @@ def parse_graph(graph: dict, nc: int, ch_in: int = 3):
             c1 = cin_of(frm[0], i)
             c2 = c1
             kw = dict(cin=c1, reg_max=int(args[0]), nc=nc)
+        elif kind == "C3k2":
+            c1 = cin_of(frm[0], i)
+            c2 = width(args[0], 8)
+            kw = dict(cin=c1, cout=c2, n=n,
+                      c3k=(len(args) > 1 and bool(args[1])) or c3k_forced,
+                      e=float(args[2]) if len(args) > 2 else 0.5)
+            n = 1
+        elif kind == "C2PSA":
+            c1 = cin_of(frm[0], i)
+            c2 = width(args[0], 8)
+            kw = dict(cin=c1, cout=c2, n=n, e=float(args[1]) if len(args) > 1 else 0.5)
+            n = 1
+        elif kind == "Head_Detect":
+            # Ultralytics' Detect: c2 = max(16, ch[0] // 4, 4 * bins),
+            # c3 = max(ch[0], min(nc, 100)), ch[0] the first level's width
+            c1 = cin_of(frm[0], i)
+            detect_c1 = c1 if detect_c1 is None else detect_c1
+            reg_max = int(args[0])
+            c2 = c1
+            kw = dict(cin=c1, c2=max(16, detect_c1 // 4, 4 * (reg_max + 1)),
+                      c3=max(detect_c1, min(nc, 100)), reg_max=reg_max, nc=nc)
         elif kind == "Out":
             out_frm = tuple(x % i for x in frm)
             c2 = ch[-1]
@@ -182,7 +218,19 @@ _BLOCK_CTORS = {
     "SimSPPF": B.SimSPPF,
     "Transpose": B.TransposeUp,
     "Head_Effide": B.Head_Effide,
+    # Ultralytics YOLO11 (models/yolo11.py)
+    "C3k2": B.C3k2,
+    "C2PSA": B.C2PSA,
+    "Head_Detect": B.Head_Detect,
 }
+# the rows whose DFL head gives the graph's reg_max (build_model)
+_DFL_HEADS = ("Head_DepthUni", "Head_Effide", "Head_Detect")
+
+
+def head_reg_max(specs, default: int = 16) -> int:
+    """reg_max of the graph's DFL head rows (bins - 1), `default` where it
+    has none (a Head_simota graph)."""
+    return next((s.kw["reg_max"] for s in specs if s.kind in _DFL_HEADS), default)
 
 
 REMAT_POLICIES = ("full", "convs")
@@ -335,7 +383,7 @@ class MAFYolo(nn.Module):
         return self.net(x, skip_until)
 
 
-def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: int = 16,
+def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: Optional[int] = None,
                 strides: Tuple[int, ...] = (8, 16, 32), deploy: bool = False,
                 skip_until: int = -1, skip_stem: bool = False,
                 quant: bool = False, calibrate: bool = False,
@@ -349,7 +397,9 @@ def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: int = 16,
     switches them later. A quant graph runs all its layers: the front-end
     and stem kernels are for the float graph. remat and remat_policy
     ("full" or "convs") rematerialize each block row in the backward
-    (GraphNet), with the JAX build_model's defaults."""
+    (GraphNet), with the JAX build_model's defaults. reg_max defaults to
+    the graph's DFL head's (head_reg_max: 16 for the MAF and office graphs,
+    15 for YOLO11's 16 bins)."""
     if isinstance(graph, str):
         if graph.lower() in MODEL_ZOO:
             graph = MODEL_ZOO[graph.lower()]
@@ -361,6 +411,10 @@ def build_model(graph: Any = "maf-yolo-n", nc: int = 80, reg_max: int = 16,
     if quant and not deploy:
         raise ValueError("quant=True needs the deploy form (deploy=True)")
     specs, save, out_frm = parse_graph(graph, nc=nc)
+    if quant:
+        refuse_yolo11(specs, "the int8 path (build_model(quant=True))")
+    if reg_max is None:
+        reg_max = head_reg_max(specs)
     return MAFYolo(specs, save, out_frm, nc=nc, reg_max=reg_max,
                    strides=strides, deploy=deploy, skip_until=skip_until,
                    skip_stem=skip_stem, quant=quant, calibrate=calibrate,

@@ -4,7 +4,8 @@ A copy of the framework-free folds of mafyolo_tpu/models/reparam.py:26-262
 for the block kinds of the MAF graphs, the reference-format yaml rows
 Conv, SimConv and Head_simota and the office graphs (RepBlock, BepC3 of
 either basic block with its `alpha` carried, SimSPPF, Transpose,
-Head_Effide), plain (repopt) RepVGG blocks included, and fold_replk of
+Head_Effide), YOLO11's C3k2, C2PSA and Head_Detect (their conv + BN pairs,
+which the JAX package lacks), plain (repopt) RepVGG blocks included, and fold_replk of
 ReparamLargeKernelConv (fold_stem_s2d is left out: the port has no s2d
 stem). The input is the JAX tree layout, {'params', 'batch_stats'}
 of numpy arrays with HWIO kernels (utils/bridge.py:state_dict_to_train_variables
@@ -127,6 +128,15 @@ def _fold_dbu(p, s, kw):
     }
 
 
+def _fold_pairs(p, s):
+    """A YOLO11 block (models/blocks.py): every conv + BN pair of the subtree
+    folded, every other leaf (the plain prediction convs) kept."""
+    if "conv" in p and "bn" in p:
+        return _fold_cbn(p, s)
+    return {k: _fold_pairs(v, s.get(k, {})) if isinstance(v, dict) else _np(v)
+            for k, v in p.items()}
+
+
 def _fold_block(kind: str, kw: Dict, p, s):
     if kind in ("Conv", "ConvWrapper", "SimConv"):
         return {"block": _fold_cbn(p["block"], s["block"])}
@@ -185,6 +195,8 @@ def _fold_block(kind: str, kw: Dict, p, s):
         for pred in ("cls_pred", "reg_pred"):
             out[pred] = {"kernel": _np(p[pred]["kernel"]), "bias": _np(p[pred]["bias"])}
         return out
+    if kind in ("C3k2", "C2PSA", "Head_Detect"):
+        return _fold_pairs(p, s)
     if kind == "Head_DepthUni":
         out = {"stem": _fold_cbn(p["stem"], s["stem"])}
         for branch in ("cls", "reg"):

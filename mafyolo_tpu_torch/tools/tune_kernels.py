@@ -8,7 +8,7 @@
     python -m mafyolo_tpu_torch.tools.tune_kernels int8
     python -m mafyolo_tpu_torch.tools.tune_kernels int8_caps
     python -m mafyolo_tpu_torch.tools.tune_kernels int8_3x3
-    python -m mafyolo_tpu_torch.tools.tune_kernels dw [f32]
+    python -m mafyolo_tpu_torch.tools.tune_kernels dw [f32 | yolo11x]
 
 `frontend`: the bf16 front-end kernel at bs32@640 for MAF-YOLO-N, -S and -M
 over a list of (tile rows, tile columns, threads), each checked against the
@@ -63,7 +63,7 @@ the kernels' defaults were read from it.
 depthwise site of MAF-YOLO-N's, -S's and -M's bf16 predict at bs32@640
 (random weights and inputs from a seed; `dw f32`: the same sites with f32
 activations, weights and bias, as an f32 predict runs them, beside cuDNN's
-f32 conv), each checked against the plain
+f32 conv; `dw yolo11x`: YOLO11x's eight k 3 sites in bf16), each checked against the plain
 version on the card first (within one bf16 rounding of its f32 result): per
 site the kernel's ms on the same input (warm) and on copies taken in turn,
 none in L2 (cold), both replayed from a CUDA graph (a site takes less
@@ -820,11 +820,12 @@ def dw_tiles(k, h, w, esize):
     return [t for t in dict.fromkeys(tiles) if DD.smem_bytes(k, *t, esize) <= DD.SMEM_MAX]
 
 
-def dw(dev, dtype=torch.bfloat16):
+def dw(dev, dtype=torch.bfloat16, graphs=None):
+    """graphs: {label: zoo name or graph dict}, N, S and M by default."""
     sums, swept, summed = {}, set(), {}
     esize = torch.empty((), dtype=dtype).element_size()
-    for name in DW_GRAPHS:
-        for site, count, front in sample.deploy_dw_sites(name, IMG, dev):
+    for name, graph in (graphs or {g: g for g in DW_GRAPHS}).items():
+        for site, count, front in sample.deploy_dw_sites(graph, IMG, dev):
             c, h, w, k, act = site
             x, wt, bias = dw_deploy_inputs(site, BATCH, dev, dtype)
             rec = time_dw_site(x, wt, bias, act)
@@ -875,6 +876,9 @@ if __name__ == "__main__":
         args, COMMANDS["dw_grad"] = ["dw_grad"], lambda dev: dw_grad(dev, full=True)
     if args == ["dw", "f32"]:
         args, COMMANDS["dw"] = ["dw"], lambda dev: dw(dev, torch.float32)
+    if args == ["dw", "yolo11x"]:       # YOLO11x's eight k 3 sites
+        from mafyolo_tpu_torch.models.yolo11 import yolo11_graph
+        args, COMMANDS["dw"] = ["dw"], lambda dev: dw(dev, graphs={"yolo11x": yolo11_graph("x")})
     if len(args) != 1 or args[0] not in COMMANDS:
         sys.exit(__doc__)
     if not torch.cuda.is_available():

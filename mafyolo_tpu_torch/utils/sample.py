@@ -19,6 +19,7 @@ from mafyolo_tpu_torch.core.evaler import Evaler
 from mafyolo_tpu_torch.data.datasets import DetectionDataset
 from mafyolo_tpu_torch.models.blocks import DWConv, bepc3_chain_len
 from mafyolo_tpu_torch.models.graph import parse_graph
+from mafyolo_tpu_torch.models.yolo11 import is_yolo11
 from mafyolo_tpu_torch.models.zoo import MODEL_ZOO
 from mafyolo_tpu_torch.ops import greedy_nms as G
 from mafyolo_tpu_torch.ops import nms as NMS
@@ -182,6 +183,22 @@ def evaler(name, folded, half, device):
     return ev
 
 
+def _map_leaves(tree, fn):
+    """The tree with each leaf v under key k replaced by fn(k, v)."""
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(k, v) for k, v in tree.items()}
+
+
+def random_deploy_tree(specs, seed=0, weight_gain=1.5):
+    """random_folded_variables' tree; a YOLO11 graph's biases a tenth as
+    large, U(+-0.02): with U(+-0.2) its residual stacks leave the head
+    features a near constant on random images (as the benchmark's
+    reference draws them, portbench/reference/yolo11.py:random_weights)."""
+    folded = random_folded_variables(specs, seed=seed, weight_gain=weight_gain)
+    if is_yolo11(specs):
+        folded = _map_leaves(folded, lambda k, v: v * np.float32(0.1) if k == "bias" else v)
+    return folded
+
+
 def random_deploy(name, dev, weight_gain=1.5):
     """Random folded weights (seed 0, gain 1.5) whose heads give detections;
     `name` is a zoo name or a graph dict (an office graph, models/office.py).
@@ -192,13 +209,13 @@ def random_deploy(name, dev, weight_gain=1.5):
     its whole batch to the dense path (nms.py's fast-path condition). So each
     head level keeps two live classes (2l, 2l+1); their cls_pred rows are
     recentred and scaled, logit' = a*(W f - mu_c) + c, from 4 calibration
-    images, so that about 150 pairs per image clear conf 0.03. Returns the
-    tree and the conf at which about 2500 pairs per image pass, which
-    overflows compact_k = 512. The other classes get a zero kernel and a bias
-    of -30, and never fire."""
+    images, so that about 150 pairs per image clear conf 0.03. Weights:
+    random_deploy_tree. Returns the tree and the conf at which about 2500
+    pairs per image pass, which overflows compact_k = 512. The other classes
+    get a zero kernel and a bias of -30, and never fire."""
     specs, _, head_layers = parse_graph(MODEL_ZOO[name] if isinstance(name, str) else name,
                                         nc=NC)
-    folded = random_folded_variables(specs, seed=0, weight_gain=weight_gain)
+    folded = random_deploy_tree(specs, seed=0, weight_gain=weight_gain)
     net = folded["params"]["net"]
     cal = evaler(name, folded, False, dev).forward(images(10, 4).to(dev))
     live = []
